@@ -5,19 +5,30 @@
 
 Phases, each fatal on failure:
 
-1. build the hand-written CUDA kernels from ``smmdax_torch/csrc`` (nvcc,
-   sm_90a) and print the build time;
+1. build the hand-written CUDA kernels from ``smmdax_torch/csrc`` (one
+   nvcc per source, side by side, sm_90a) and print the build time;
 2. hold both pair-sum kernels to their plain PyTorch versions on the card
    (gaussian, rq, rq + add_dot, distance, dot; self blocks without the
    diagonal and cross blocks; at 64x16, ragged 100x60x16, 4096x16 and
    8192x128), and the ``fused_mmd2`` gradients to the dense oracle's; time
    kernels and plain versions with CUDA events;
+2b. the same for both pair-stats kernels (non-zero u, v and c), and the
+   ``make_pair_stats`` gradients to the dense oracle's;
 3. the flagship training macro-step at full width (sn-smmd, rq mixture,
    ResNet G/D at gf=df=64, z 128, dof 16, B 64, 5 critic + 1 generator
    updates, hutchinson sigma, EMA 0.9999, bf16, fused MMD on): timed
    macro-steps with the kernels' launch counters read around them, a
-   torch.profiler trace of two more, two float32 macro-steps with TF32
-   off, and 256 samples from the EMA generator.
+   torch.profiler trace of two more, one float32 macro-step with TF32
+   off, and 256 samples from the EMA generator;
+4. the data-parallel tmmd step at full width, as the per-rank program of
+   a one-rank NCCL group on cuda:0 (the flagship networks without SN,
+   model tmmd, ``use_ring_mmd``, B 64 per rank): timed macro-steps with
+   all four kernels' launch counters read around them and a profile, one
+   float32 macro-step, the ring (MMD^2, t-ratio) against the dense
+   estimator on the trained features, and the critic's gradients under
+   the ring against the single-device dense tmmd loss's.  With two or more
+   cards, also the ring loss and gradient on two ranks, one per card,
+   against the one-rank result.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -30,9 +41,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -47,6 +60,22 @@ GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-6            # tests/test_pallas.py:69-72
 # raw pair_sum_grad_a rows are sums of n terms that cancel (rowsum*a - G@b):
 # held to the plain version at GRAD_RTOL of their largest entry
 RAW_GRAD_SCALE_TOL = 2e-4
+# make_pair_stats gradients against the dense oracle: rtol 5e-4 / atol 1e-5
+# as tests/test_ring.py:199-200 (48x8), plus 2e-5 of the largest entry: an
+# entry sums m*n terms of up to that size, and the kernels lie up to
+# 5.0e-6 of it from the oracle at 8192x128 (3.4e-7 at 64x16)
+STATS_GRAD_RTOL, STATS_GRAD_ATOL, STATS_GRAD_SCALE_TOL = 5e-4, 1e-5, 2e-5
+RATIO_RTOL = 5e-4                              # tests/test_ring.py:129-130
+# critic gradients of the ring against the dense tmmd loss: rtol 1e-3 as
+# tests/test_shardmap_mode.py:191, whose atol 2e-5 is 1.1e-5 of that test's
+# largest entry (1.77).  A deep critic's gradients are larger, and the
+# dense float32 loss's own error is 2.2e-5 of the largest entry (the ring's
+# 8.8e-6; both against float64, tiny tmmd state on the CPU), so the atol is
+# 1e-4 of the largest entry.  The float64 dense loss is printed beside it:
+# at full width it differs from both float32 losses by the critic's own
+# float32 error, far more than they differ from each other.
+DP_GRAD_RTOL, DP_GRAD_SCALE_TOL = 1e-3, 1e-4
+STATS_C = 0.7                                  # c_sq of the stats-gradient checks
 
 KINDS = [("gaussian", (1.0, 2.0, 4.0, 8.0, 16.0), 0.0),
          ("rq", (0.2, 0.5, 1.0, 2.0, 5.0), 0.0),
@@ -97,16 +126,27 @@ def bound_ms(kind: str, m: int, n: int, d: int, exclude_diag: bool,
     """Least time on the card, max(bytes / HBM rate, ops / FP32 rate), and
     which of the two sets it.  Bytes: inputs read once, output written
     once.  Ops: the pairs this call computes (the diagonal excluded where
-    masked)."""
+    masked).  ``kind``: fwd / bwd (pair_sum, pair_sum_grad_a), stats_fwd /
+    stats_bwd (pair_stats, pair_stats_grad_a)."""
     pairs = m * n - (min(m, n) if exclude_diag else 0)
     k_ops, g_ops = mixture_ops(kernel, params, add_dot)
+    in_bytes = 4 * (m + n) * d
     if kind == "fwd":
         ops = pairs * (2 * d + 4 + k_ops)                # dot, d2, mixture, sum
         out_bytes = 4
-    else:
+    elif kind == "bwd":
         ops = pairs * (2 * d + 4 + g_ops + 2 * d + 2) + 3 * m * d   # + G@b, rowsum
         out_bytes = 4 * m * d
-    nbytes = 4 * (m + n) * d + out_bytes
+    elif kind == "stats_fwd":
+        ops = pairs * (2 * d + 4 + k_ops + 2)            # + k^2 and the row sum
+        out_bytes = 4 * m + 4
+    else:
+        # k and g both; coeff = u + v + 2ck, coeff*g, coeff*(g - add_dot/2);
+        # the row sum and T'@b
+        ops = pairs * (2 * d + 4 + k_ops + g_ops + 5 + 1 + 2 * d) + 3 * m * d
+        in_bytes += 4 * (m + n) + 4                      # u, v, c
+        out_bytes = 4 * m * d
+    nbytes = in_bytes + out_bytes
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes > by_ops else "operations")
 
@@ -201,6 +241,123 @@ def check_kernels(results: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the pair-stats kernels against their plain versions
+
+
+def check_stats_kernels(results: dict) -> dict:
+    import torch
+    from smmdax_torch.cuda import mmd_kernel as mk
+    from smmdax_torch.kernels import kernel_matrices
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    failures, rows, oracle = [], [], []
+    slice_err, slice_times = {}, {}
+    c = torch.tensor(STATS_C, device="cuda")
+    for (m, n, d) in SHAPES:
+        a = torch.randn(m, d, device="cuda", generator=gen) * 0.7
+        b = torch.randn(n, d, device="cuda", generator=gen) * 0.7 + 0.3
+        iters = 200 if m * n <= 10**4 else 20
+        for label, params, add_dot in KINDS:
+            name = label.split("+")[0]
+            kernel, kp, ad = mk.canon_kernel(name, params, add_dot)
+            for other, excl in ((a, True), (b, False)):
+                nb = other.shape[0]
+                u = torch.randn(m, device="cuda", generator=gen)
+                v = torch.randn(nb, device="cuda", generator=gen)
+                rk, sk = mk.pair_stats(a, other, kernel, kp, excl, ad)
+                rp, sp = mk.pair_stats_plain(a, other, kernel, kp, excl, ad)
+                rerr = float((rk - rp).abs().max())
+                serr = abs(float(sk) - float(sp))
+                where = f"{label} {(m, nb, d)} excl={excl}"
+                # a row sum adds n terms that may cancel (the dot kernel's is
+                # <a_i, sum_j b_j>): held at VALUE_RTOL of the largest row
+                rscale = float(rp.abs().max())
+                if not rerr <= VALUE_ATOL + VALUE_RTOL * rscale:
+                    failures.append(f"pair_stats rows {where}: max err {rerr} at "
+                                    f"scale {rscale}")
+                if not serr <= VALUE_ATOL + VALUE_RTOL * abs(float(sp)):
+                    failures.append(f"pair_stats sum_sq {where}: {float(sk)} vs {float(sp)}")
+                dk = mk.pair_stats_grad_a(a, other, u, v, c, kernel, kp, excl, ad)
+                dp = mk.pair_stats_grad_a_plain(a, other, u, v, c, kernel, kp, excl, ad)
+                derr, dscale = float((dk - dp).abs().max()), float(dp.abs().max())
+                if not derr <= RAW_GRAD_SCALE_TOL * dscale + 1e-6:
+                    failures.append(f"pair_stats_grad_a {where}: max err {derr} at "
+                                    f"scale {dscale}")
+                row = dict(kernel=label, m=m, n=nb, d=d, self_block=excl,
+                           rows_max_abs_err=rerr, rows_scale=rscale, sum_sq_abs_err=serr,
+                           da_max_abs_err=derr, da_scale=dscale)
+                if excl and label == "rq":
+                    for kind, fn, plain in (
+                            ("stats_fwd", lambda: mk.pair_stats(a, other, kernel, kp, excl, ad),
+                             lambda: mk.pair_stats_plain(a, other, kernel, kp, excl, ad)),
+                            ("stats_bwd",
+                             lambda: mk.pair_stats_grad_a(a, other, u, v, c, kernel, kp, excl, ad),
+                             lambda: mk.pair_stats_grad_a_plain(a, other, u, v, c, kernel, kp,
+                                                                excl, ad))):
+                        row[f"{kind}_ms"] = time_ms(fn, iters)
+                        row[f"{kind}_plain_ms"] = time_ms(plain, max(iters // 4, 5))
+                        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms(
+                            kind, m, m, d, True, kernel, kp, ad)
+                    if (m, n, d) == SLICE_SHAPE:
+                        slice_times = row
+                        slice_err = dict(fwd=max(rerr, serr), bwd=derr)
+                rows.append(row)
+            # make_pair_stats gradients against the dense oracle
+            for excl in (False, True):
+                bb = a if excl else b
+                u = torch.randn(m, device="cuda", generator=gen)
+                v = torch.randn(bb.shape[0], device="cuda", generator=gen)
+                stats = mk.make_pair_stats(name, params, excl, add_dot=add_dot)
+
+                def fused(aa, cc):
+                    r_, c_, s_ = stats(aa, cc)
+                    return u @ r_ + v @ c_ + 0.3 * s_
+
+                def dense(aa, cc):
+                    km = kernel_matrices(name, aa, cc, rbf_sigmas=params, rq_alphas=params,
+                                         add_dot=add_dot).k_xy
+                    if excl:
+                        km = km - torch.diag(torch.diagonal(km))
+                    return u @ km.sum(1) + v @ km.sum(0) + 0.3 * (km * km).sum()
+
+                got, want = (_grads(f, a, bb) for f in (fused, dense))
+                for which, g_, w_ in zip("ab", got, want):
+                    err, scale = float((g_ - w_).abs().max()), float(w_.abs().max())
+                    oracle.append(dict(kernel=label, m=m, n=bb.shape[0], d=d, self_block=excl,
+                                       arg=which, max_abs_err=err, scale=scale))
+                    if not torch.allclose(g_, w_, rtol=STATS_GRAD_RTOL,
+                                          atol=STATS_GRAD_ATOL + STATS_GRAD_SCALE_TOL * scale):
+                        bad = float(((g_ - w_).abs() - STATS_GRAD_RTOL * w_.abs()).max())
+                        failures.append(f"make_pair_stats d/d{which} {label} {(m, bb.shape[0], d)} "
+                                        f"excl={excl}: max err {err} at scale {scale} "
+                                        f"(worst excess over rtol {bad})")
+        worst = max((o["max_abs_err"] / max(o["scale"], 1e-30) for o in oracle
+                     if o["m"] == m), default=0.0)
+        log(f"stats kernels vs plain at {(m, n, d)}: checked; make_pair_stats gradients "
+            f"within {worst:.3g} of their largest entry of the dense oracle")
+    torch.cuda.synchronize()
+    results["stats_kernel_rows"] = rows
+    results["stats_oracle_grads"] = oracle
+    for r in rows:
+        if "stats_fwd_ms" in r:
+            log("  rq self-block m={m} d={d}: stats fwd {stats_fwd_ms:.4f} ms (plain "
+                "{stats_fwd_plain_ms:.4f}, bound {stats_fwd_bound_ms:.6f}); stats bwd "
+                "{stats_bwd_ms:.4f} ms (plain {stats_bwd_plain_ms:.4f}, bound "
+                "{stats_bwd_bound_ms:.6f})".format(**r))
+    if failures:
+        fail(f"{len(failures)} pair-stats checks failed: " + "; ".join(failures[:20]))
+    return dict(times=slice_times, err=slice_err)
+
+
+def _grads(f, a, b):
+    """d f / d(a, b), with a and b as separate leaves (a self block too)."""
+    import torch
+    aa = a.clone().requires_grad_()
+    bb = b.clone().requires_grad_()
+    return torch.autograd.grad(f(aa, bb), (aa, bb))
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the slice at full width
 
 
@@ -249,24 +406,29 @@ def profile_steps(step, state, batches, results: dict) -> None:
         log(f"  {r['device_ms']:8.3f} ms {r['calls'] / 2:6.0f}x  {r['name']}")
 
 
-def run_slice(cfg, steps: int, label: str, results: dict,
-              profile: bool = False) -> tuple:
-    """create_state + build_train_step over ``steps`` timed macro-steps
-    after one warm-up; returns (state, launches per macro-step)."""
+def run_slice(cfg, steps: int, label: str, results: dict, required,
+              profile: bool = False, axis=None) -> tuple:
+    """create_state + build_train_step (the per-rank program when ``axis``
+    is given) over ``steps`` timed macro-steps after one warm-up, with
+    every kernel's launch count set to 0 just before and read just after;
+    fails unless each kernel named in ``required`` was launched.  Returns
+    (state, {kernel: launches})."""
     import torch
     from smmdax_torch.cuda import mmd_kernel as mk
     from smmdax_torch.data import SyntheticImages, macro_batch_at
     from smmdax_torch.train import build_train_step, create_state
 
-    state = create_state(cfg, seed=0, device="cuda")
-    step = build_train_step(cfg, cfg.dsteps, cfg.gsteps)
+    device = "cuda" if axis is None else axis.device
+    state = create_state(cfg, seed=0, device=device, rank=0 if axis is None else axis.index)
+    step = build_train_step(cfg, cfg.dsteps, cfg.gsteps, axis=axis)
     src = SyntheticImages(size=cfg.output_size, channels=cfg.c_dim, seed=cfg.random_seed)
     per_step = cfg.dsteps + cfg.gsteps
     batches = [macro_batch_at(src, s, per_step, cfg.real_batch_size,
                               u8=cfg.uint8_transfer)
                for s in range(steps + 1)]
-    mk.pair_sum.launches = 0
-    mk.pair_sum_grad_a.launches = 0
+    counters = mk.kernel_launch_counters()
+    for k in counters:
+        k.launches = 0
     state, metrics = step(state, batches[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -274,25 +436,24 @@ def run_slice(cfg, steps: int, label: str, results: dict,
         state, metrics = step(state, batches[s])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
-    fwd, bwd = mk.pair_sum.launches, mk.pair_sum_grad_a.launches
+    launches = {k.__name__: k.launches for k in counters}
     values = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in values.values()):
         fail(f"{label}: non-finite metrics {values}")
-    if fwd == 0 or bwd == 0:
-        fail(f"{label}: the main path did not launch both kernels ({fwd}, {bwd})")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        fail(f"{label}: the main path did not launch {missing} ({launches})")
     n_steps = steps + 1
-    per = (fwd / n_steps, bwd / n_steps)
     imgs = per_step * cfg.batch_size / dt
     log(f"{label}: {dt * 1e3:.2f} ms per macro-step, {imgs:.1f} images/s "
         f"({steps} timed after 1 warm-up); launches per macro-step: "
-        f"pair_sum {per[0]:g}, pair_sum_grad_a {per[1]:g}; metrics "
-        + " ".join(f"{k}={v:.5g}" for k, v in values.items()))
+        + ", ".join(f"{k} {v / n_steps:g}" for k, v in launches.items())
+        + "; metrics " + " ".join(f"{k}={v:.5g}" for k, v in values.items()))
     results[label] = dict(ms_per_macro_step=dt * 1e3, images_per_s=imgs,
-                          launches=dict(pair_sum=fwd, pair_sum_grad_a=bwd,
-                                        macro_steps=n_steps), metrics=values)
+                          launches=dict(launches, macro_steps=n_steps), metrics=values)
     if profile:
         profile_steps(step, state, batches, results[label])
-    return state, (fwd, bwd)
+    return state, launches
 
 
 def check_fused_loss(cfg, state) -> None:
@@ -314,6 +475,184 @@ def check_fused_loss(cfg, state) -> None:
     log(f"flagship MMD^2 on trained features: fused {fused:.6g}, dense {dense:.6g}")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the data-parallel tmmd ring step at full width
+
+
+def tmmd_ring_config(dtype: str):
+    """The flagship's networks, widths and optimiser with model tmmd (no
+    SN, no sigma) and the ring estimators; B 64 per rank."""
+    from smmdax_torch.configs import Config
+    return Config(model="tmmd", kernel="rq", architecture="resnet",
+                  dataset="synthetic", output_size=32, batch_size=64,
+                  real_batch_size=64, gf_dim=64, df_dim=64, z_dim=128,
+                  dof_dim=16, dsteps=5, gsteps=1, learning_rate=1e-4,
+                  beta1=0.5, beta2=0.9, ema_decay=0.9999, compute_dtype=dtype,
+                  use_pallas="on", use_ring_mmd=True)
+
+
+def _eval_batches(cfg, state, device):
+    """A real batch and a fake batch (no gradient) for the loss checks."""
+    import torch
+    from smmdax_torch.data import SyntheticImages, normalize_uint8
+    src = SyntheticImages(size=cfg.output_size, channels=cfg.c_dim, seed=cfg.random_seed)
+    real = normalize_uint8(torch.from_numpy(src.batch_u8(cfg.batch_size, key=10**6)).to(device))
+    gen = torch.Generator(device=device).manual_seed(7)
+    with torch.no_grad():
+        z = torch.rand((cfg.batch_size, cfg.z_dim), device=device, generator=gen) * 2 - 1
+        fake = state.gen(z, train=True)
+    return real, fake
+
+
+def check_ring_loss(cfg, state, axis, results: dict) -> None:
+    """The ring (MMD^2, t-ratio) through the stats kernels equals the dense
+    estimator on the trained state's features."""
+    import torch
+    from smmdax_torch.kernels import kernel_matrices, mmd2_and_ratio
+    from smmdax_torch.parallel import ring_mmd2_and_ratio
+    real, fake = _eval_batches(cfg, state, axis.device)
+    with torch.no_grad():
+        f_fake, f_real = state.disc(fake), state.disc(real)
+        val, ratio = ring_mmd2_and_ratio(f_fake, f_real, axis, cfg.kernel,
+                                         rq_alphas=cfg.rq_alphas, use_pallas=True)
+        dval, dratio = mmd2_and_ratio(kernel_matrices(cfg.kernel, f_fake, f_real,
+                                                      rq_alphas=cfg.rq_alphas))
+    val, ratio, dval, dratio = (float(t) for t in (val, ratio, dval, dratio))
+    if not abs(val - dval) <= VALUE_ATOL + VALUE_RTOL * abs(dval):
+        fail(f"ring tmmd MMD^2 {val} vs dense {dval}")
+    if not abs(ratio - dratio) <= 1e-6 + RATIO_RTOL * abs(dratio):
+        fail(f"ring tmmd ratio {ratio} vs dense {dratio}")
+    results["ring_vs_dense"] = dict(mmd2=val, dense_mmd2=dval, ratio=ratio, dense_ratio=dratio)
+    log(f"ring tmmd on trained features: MMD^2 {val:.7g} (dense {dval:.7g}), "
+        f"ratio {ratio:.7g} (dense {dratio:.7g})")
+
+
+def ring_critic_grads(cfg, disc, real, fake, axis):
+    """(loss, ratio, pmean'd critic gradients) of the ring tmmd critic loss
+    on this rank's block of ``real``/``fake`` (``axis``), or of the
+    single-device dense tmmd loss (``axis`` None)."""
+    import torch
+    from smmdax_torch.losses import critic_loss
+    if axis is not None:
+        b = real.shape[0] // axis.size
+        real = real[axis.index * b:(axis.index + 1) * b]
+        fake = fake[axis.index * b:(axis.index + 1) * b]
+    else:
+        cfg = cfg.replace(use_ring_mmd=False)
+    params = list(disc.parameters())
+    loss, aux = critic_loss(cfg, disc, real, fake, axis=axis)
+    grads = torch.autograd.grad(loss, params)
+    if axis is not None:
+        grads = [axis.pmean(g) for g in grads]
+    return float(loss.detach()), float(aux.ratio.detach()), [g.detach() for g in grads]
+
+
+def compare_grads(got, want, what: str) -> tuple:
+    """Fails unless every gradient is within DP_GRAD_RTOL plus
+    DP_GRAD_SCALE_TOL of the largest entry of ``want``; returns (max abs
+    error, largest entry)."""
+    import torch
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.allclose(g, w, rtol=DP_GRAD_RTOL, atol=DP_GRAD_SCALE_TOL * scale):
+            fail(f"{what}: gradient {i} off by {float((g - w).abs().max())} "
+                 f"(largest entry {scale}; max abs error {err})")
+    return err, scale
+
+
+def check_ring_critic_grads(cfg, state, axis, results: dict) -> tuple:
+    """The critic's gradients under the ring equal those of the
+    single-device dense tmmd loss.  Returns the inputs and the ring's
+    result for the two-rank check."""
+    import copy
+    real, fake = _eval_batches(cfg, state, axis.device)
+    loss, ratio, g_ring = ring_critic_grads(cfg, state.disc, real, fake, axis)
+    dloss, dratio, g_dense = ring_critic_grads(cfg, state.disc, real, fake, None)
+    _, _, g_64 = ring_critic_grads(cfg, copy.deepcopy(state.disc).double(),
+                                   real.double(), fake.double(), None)
+    if not abs(loss - dloss) <= 1e-5 + RATIO_RTOL * abs(dloss):
+        fail(f"ring tmmd critic loss {loss} vs dense {dloss}")
+    err, scale = compare_grads(g_ring, g_dense, "ring vs dense critic gradients")
+    err64, dense64 = (max(float((g.double() - w).abs().max()) for g, w in zip(gs, g_64))
+                      for gs in (g_ring, g_dense))
+    results["ring_critic_grads"] = dict(loss=loss, dense_loss=dloss, max_abs_err=err,
+                                        scale=scale, ring_vs_f64=err64,
+                                        dense_vs_f64=dense64)
+    log(f"ring tmmd critic gradients (float32): loss {loss:.7g} (dense {dloss:.7g}); "
+        f"{len(g_ring)} tensors within {err:.3g} abs of the dense loss's "
+        f"(largest entry {scale:.3g}); the float64 dense loss's lie {err64:.3g} "
+        f"(ring) and {dense64:.3g} (dense) from them")
+    return real, fake, (loss, ratio, g_ring)
+
+
+def _two_rank_worker(rank: int, world: int, device_type: str, store: str,
+                     payload_path: str, out_path: str) -> None:
+    """One rank of the two-rank check: the ring tmmd critic loss and its
+    pmean'd gradients on this rank's half of the batch."""
+    import torch
+    sys.path.insert(0, HERE)
+    from smmdax_torch.configs import Config
+    from smmdax_torch.nn import build_models
+    from smmdax_torch.parallel import init_data_axis
+    # a spawned process starts with PyTorch's defaults: cuDNN would run the
+    # float32 critic's convolutions in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = f"cuda:{rank}" if device_type == "cuda" else "cpu"
+    payload = torch.load(payload_path, weights_only=False)
+    cfg = Config(**payload["cfg"])
+    axis = init_data_axis(device, rank, world, store)
+    try:
+        _, disc = build_models(cfg, torch.Generator().manual_seed(0))
+        disc.load_state_dict(payload["disc"])
+        disc.to(device)
+        loss, ratio, grads = ring_critic_grads(cfg, disc, payload["real"].to(device),
+                                               payload["fake"].to(device), axis)
+        if rank == 0:
+            torch.save(dict(loss=loss, ratio=ratio, grads=[g.cpu() for g in grads]),
+                       out_path)
+    finally:
+        axis.close()
+
+
+def check_two_ranks(cfg, state, real, fake, one_rank, results: dict,
+                    device_type: str = "cuda") -> None:
+    """The ring tmmd loss and gradient on two ranks, one process per card,
+    against the one-rank result."""
+    import dataclasses
+    import torch
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        payload = os.path.join(tmp, "payload.pt")
+        out = os.path.join(tmp, "rank0.pt")
+        torch.save(dict(cfg=dataclasses.asdict(cfg), disc=state.disc.state_dict(),
+                        real=real.cpu(), fake=fake.cpu()), payload)
+        procs = [ctx.Process(target=_two_rank_worker,
+                             args=(r, 2, device_type, os.path.join(tmp, "store"), payload, out))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs) or not os.path.exists(out):
+            fail(f"2-rank ring: exit codes {[p.exitcode for p in procs]}")
+        got = torch.load(out, weights_only=False)
+    loss, ratio, grads = one_rank
+    if not abs(got["loss"] - loss) <= 1e-5 + RATIO_RTOL * abs(loss):
+        fail(f"2-rank ring loss {got['loss']} vs one rank {loss}")
+    err, scale = compare_grads(got["grads"], [g.cpu() for g in grads],
+                               "2-rank vs one-rank ring critic gradients")
+    results["two_rank_ring"] = dict(loss=got["loss"], one_rank_loss=loss,
+                                    max_abs_err=err, scale=scale)
+    log(f"2-rank ring (one card each): loss {got['loss']:.7g} (one rank {loss:.7g}); "
+        f"gradients within {err:.3g} abs (largest entry {scale:.3g})")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="write all results as JSON here")
@@ -329,7 +668,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from smmdax_torch.cuda import build
-    from smmdax_torch.cuda import mmd_kernel as mk
+    from smmdax_torch.parallel import init_data_axis
     from smmdax_torch.train import sample
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -341,21 +680,25 @@ def main(argv=None) -> int:
 
     # phase 1
     _, nvcc_log, secs = build.build()
-    log(f"build: {secs:.1f} s for {build.SOURCE}")
+    log(f"build: {secs:.1f} s for {', '.join(build.sources())}")
     for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
     results["build_s"] = secs
 
-    # phase 2
+    # phase 2, 2b
     t0 = time.perf_counter()
     slice_k = check_kernels(results)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    slice_s = check_stats_kernels(results)
+    log(f"stats kernel phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
+    t0 = time.perf_counter()
     cfg = flagship_config("bfloat16")
-    state, (fwd, bwd) = run_slice(cfg, TIMED_STEPS, "flagship bf16", results,
-                                  profile=True)
+    state, flagship = run_slice(cfg, TIMED_STEPS, "flagship bf16", results,
+                                ("pair_sum", "pair_sum_grad_a"), profile=True)
     check_fused_loss(cfg, state)
     imgs = sample(cfg, state, torch.Generator(device="cuda").manual_seed(1), n=256)
     torch.cuda.synchronize()
@@ -365,18 +708,51 @@ def main(argv=None) -> int:
     log(f"sample: 256 EMA images {tuple(imgs.shape)} in [{float(imgs.min()):.3f}, "
         f"{float(imgs.max()):.3f}]")
     del state
-    run_slice(flagship_config("float32"), 1, "flagship f32", results)
+    run_slice(flagship_config("float32"), 1, "flagship f32", results,
+              ("pair_sum", "pair_sum_grad_a"))
+    log(f"flagship phase: {time.perf_counter() - t0:.1f} s")
 
-    t = slice_k["times"]
+    # phase 4
+    t0 = time.perf_counter()
+    axis = init_data_axis("cuda:0")
+    try:
+        cfg = tmmd_ring_config("bfloat16")
+        required = ("pair_sum", "pair_sum_grad_a", "pair_stats", "pair_stats_grad_a")
+        state, ring = run_slice(cfg, TIMED_STEPS, "tmmd ring bf16", results, required,
+                                profile=True, axis=axis)
+        check_ring_loss(cfg, state, axis, results)
+        del state
+        cfg = tmmd_ring_config("float32")
+        state, _ = run_slice(cfg, 1, "tmmd ring f32", results, required, axis=axis)
+        real, fake, one_rank = check_ring_critic_grads(cfg, state, axis, results)
+    finally:
+        axis.close()
+    if torch.cuda.device_count() >= 2:
+        check_two_ranks(cfg, state, real, fake, one_rank, results)
+    else:
+        log("2-rank ring: skipped, 1 card")
+    log(f"tmmd ring phase: {time.perf_counter() - t0:.1f} s")
+
+    t, ts = slice_k["times"], slice_s["times"]
     kernels = [
         dict(name="pair_sum_fwd", route="cuda", source="smmdax_torch/csrc/pair_sum.cu",
-             replaces="smmdax/pallas/mmd_kernel.py:141", launches=fwd,
+             replaces="smmdax/pallas/mmd_kernel.py:141", launches=flagship["pair_sum"],
              max_abs_err=slice_k["err"]["fwd"], ms=t["fwd_ms"], plain_ms=t["fwd_plain_ms"],
              bound_ms=t["fwd_bound_ms"], bound_by=t["fwd_bound_by"], library_ms=None),
         dict(name="pair_sum_grad_a", route="cuda", source="smmdax_torch/csrc/pair_sum.cu",
-             replaces="smmdax/pallas/mmd_kernel.py:186", launches=bwd,
+             replaces="smmdax/pallas/mmd_kernel.py:186", launches=flagship["pair_sum_grad_a"],
              max_abs_err=slice_k["err"]["bwd"], ms=t["bwd_ms"], plain_ms=t["bwd_plain_ms"],
              bound_ms=t["bwd_bound_ms"], bound_by=t["bwd_bound_by"], library_ms=None),
+        dict(name="pair_stats", route="cuda", source="smmdax_torch/csrc/pair_stats.cu",
+             replaces="smmdax/pallas/mmd_kernel.py:323", launches=ring["pair_stats"],
+             max_abs_err=slice_s["err"]["fwd"], ms=ts["stats_fwd_ms"],
+             plain_ms=ts["stats_fwd_plain_ms"], bound_ms=ts["stats_fwd_bound_ms"],
+             bound_by=ts["stats_fwd_bound_by"], library_ms=None),
+        dict(name="pair_stats_grad_a", route="cuda", source="smmdax_torch/csrc/pair_stats.cu",
+             replaces="smmdax/pallas/mmd_kernel.py:387", launches=ring["pair_stats_grad_a"],
+             max_abs_err=slice_s["err"]["bwd"], ms=ts["stats_bwd_ms"],
+             plain_ms=ts["stats_bwd_plain_ms"], bound_ms=ts["stats_bwd_bound_ms"],
+             bound_by=ts["stats_bwd_bound_by"], library_ms=None),
     ]
     card = card_line()
     results.update(kernels=kernels, card=card)

@@ -8,9 +8,11 @@ takes the hand-written CUDA pair-sum kernels at every size on the card
 measured yet).  The fields keep their JAX names: ``use_pallas`` selects
 the fused CUDA path here.
 
+``num_data_shards`` and ``use_ring_mmd`` are honoured as in the JAX
+package: a multi-shard config without a ``DataAxis`` never takes the
+fused kernels, and with one the ring estimators serve the losses.
 Fields that only later slices read (scoring, scheduler, data placement,
-parallelism, dispatch) are kept so configs stay interchangeable; the
-train step rejects the ones it cannot honour yet.
+dispatch) are kept so configs stay interchangeable.
 """
 
 from __future__ import annotations

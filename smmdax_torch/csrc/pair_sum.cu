@@ -5,10 +5,9 @@
 //                    rowsum(G)_i * a_i - ((G - add_dot/2 * mask) @ b)_i,
 //                    G_ij = mask_ij * dk/d(d2)
 //
-// k is a Gaussian or rational-quadratic mixture (rq optionally plus
-// add_dot * <a_i, b_j>), or the energy-distance kernel -sqrt(d2 + eps).
-// The mask drops the diagonal of a self-block (exclude_diag).  Neither
-// kernel materialises the (m, n) Gram matrix in device memory.
+// k is the mixture of mixture.cuh (shared with pair_stats.cu).  The mask
+// drops the diagonal of a self-block (exclude_diag).  Neither kernel
+// materialises the (m, n) Gram matrix in device memory.
 //
 // Replaces the TPU kernels _fwd_kernel/_pair_sum and
 // _bwd_kernel/_pair_sum_grad_a of smmdax/pallas/mmd_kernel.py.  The TPU
@@ -33,79 +32,14 @@
 // Plain C interface for ctypes; every entry point returns
 // cudaGetLastError() after its launches.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-
-// Passed by value through the C interface: it lives outside the anonymous
-// namespace so the extern "C" entry points keep external linkage.
-struct SmmdaxMix {
-  int kind;
-  int n;          // number of mixture terms
-  float add_dot;  // rq only
-  float p[8];     // gaussian: gamma = 1/(2 sigma^2); rq: alpha
-};
+#include "mixture.cuh"
 
 namespace {
 
-using Mix = SmmdaxMix;
-constexpr int kMaxParams = sizeof(Mix::p) / sizeof(float);
-constexpr int kGaussian = 0;
-constexpr int kRQ = 1;
-constexpr int kDistance = 2;
-constexpr float kDistEps = 1e-8f;  // smmdax_torch.kernels.kernels.DIST_EPS
-
-constexpr int kThreads = 256;
-constexpr int kChunk = 32;      // d-chunk staged through shared memory
 constexpr int kTile = 64;       // forward: 64 x 64 pairs per block
 constexpr int kGradRows = 32;   // backward: rows of a per block
 constexpr int kGradCols = 64;   // backward: column tile of b
 constexpr int kGradOut = 128;   // backward: output columns of da per block
-
-__device__ __forceinline__ float mixture_k(float d2, float dot, const Mix& mx) {
-  float k = 0.f;
-  if (mx.kind == kGaussian) {
-    for (int t = 0; t < mx.n; ++t) k += expf(d2 * (-mx.p[t]));
-  } else if (mx.kind == kRQ) {
-    for (int t = 0; t < mx.n; ++t) {
-      const float a = mx.p[t];
-      k += expf(-a * log1pf(d2 / (2.f * a)));
-    }
-    if (mx.add_dot != 0.f) k += mx.add_dot * dot;
-  } else {
-    k = -sqrtf(d2 + kDistEps);
-  }
-  return k;
-}
-
-__device__ __forceinline__ float mixture_g(float d2, const Mix& mx) {
-  float g = 0.f;
-  if (mx.kind == kGaussian) {
-    for (int t = 0; t < mx.n; ++t) {
-      const float gamma = mx.p[t];
-      g += -gamma * expf(-gamma * d2);
-    }
-  } else if (mx.kind == kRQ) {
-    for (int t = 0; t < mx.n; ++t) {
-      const float a = mx.p[t];
-      g += -0.5f * expf(-(a + 1.f) * log1pf(d2 / (2.f * a)));
-    }
-  } else {
-    g = -0.5f / sqrtf(d2 + kDistEps);
-  }
-  return g;
-}
-
-// Stage rows [r0, r0 + rows) x columns [k0, k0 + kChunk) of x (row-major,
-// width d) into s, zero outside the matrix.
-template <int Rows>
-__device__ __forceinline__ void stage(float (*s)[kChunk + 1], const float* __restrict__ x,
-                                      int r0, int nrows, int k0, int d) {
-  for (int e = threadIdx.x; e < Rows * kChunk; e += kThreads) {
-    const int r = e / kChunk, k = e % kChunk;
-    const int gr = r0 + r, gk = k0 + k;
-    s[r][k] = (gr < nrows && gk < d) ? x[(size_t)gr * d + gk] : 0.f;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -179,22 +113,6 @@ pair_sum_tiles(const float* __restrict__ a, const float* __restrict__ b,
     for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
     partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
   }
-}
-
-// One block: sum the per-block partials in a fixed order.
-__global__ void __launch_bounds__(kThreads)
-sum_partials(const float* __restrict__ partials, int count, float* __restrict__ out) {
-  __shared__ float buf[kThreads];
-  const int t = threadIdx.x;
-  float s = 0.f;
-  for (int e = t; e < count; e += kThreads) s += partials[e];
-  buf[t] = s;
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (t < w) buf[t] += buf[t + w];
-    __syncthreads();
-  }
-  if (t == 0) *out = buf[0];
 }
 
 // ---------------------------------------------------------------------------
@@ -303,11 +221,6 @@ pair_sum_grad_rows(const float* __restrict__ a, const float* __restrict__ b,
       if (col < d) da[(size_t)i * d + col] = rowsum * a[(size_t)i * d + col] - acc[q];
     }
   }
-}
-
-bool valid(int m, int n, int d, const Mix& mx) {
-  return m > 0 && n > 0 && d > 0 && mx.n >= 0 && mx.n <= kMaxParams &&
-         mx.kind >= kGaussian && mx.kind <= kDistance;
 }
 
 }  // namespace

@@ -1,24 +1,38 @@
-"""Fused pairwise-kernel MMD sums on the card (port of
-``smmdax/pallas/mmd_kernel.py``, pair-sum half).
+"""Fused pairwise-kernel MMD sums and block statistics on the card (port
+of ``smmdax/pallas/mmd_kernel.py``).
 
-Two hand-written CUDA kernels (``smmdax_torch/csrc/pair_sum.cu``):
+Four hand-written CUDA kernels:
 
-* ``pair_sum`` replaces ``_fwd_kernel``/``_pair_sum`` (mmd_kernel.py:141-179):
-  S(a, b) = sum_ij mask * k(||a_i - b_j||^2) without a Gram matrix in
-  device memory; per-block partials plus a fixed-order second pass.
-* ``pair_sum_grad_a`` replaces ``_bwd_kernel``/``_pair_sum_grad_a``
-  (mmd_kernel.py:186-242): sum_j g_ij (a_i - b_j) [+ (add_dot/2) b_j],
-  one block per row block of a, looping over the column tiles of b.
+* ``pair_sum`` (``csrc/pair_sum.cu``) replaces ``_fwd_kernel``/``_pair_sum``
+  (mmd_kernel.py:141-179): S(a, b) = sum_ij mask * k(||a_i - b_j||^2)
+  without a Gram matrix in device memory; per-block partials plus a
+  fixed-order second pass.
+* ``pair_sum_grad_a`` (``csrc/pair_sum.cu``) replaces
+  ``_bwd_kernel``/``_pair_sum_grad_a`` (mmd_kernel.py:186-242):
+  sum_j g_ij (a_i - b_j) [+ (add_dot/2) b_j], one block per row block of
+  a, looping over the column tiles of b.
+* ``pair_stats`` (``csrc/pair_stats.cu``) replaces
+  ``_stats_kernel``/``_pair_stats_fwd`` (mmd_kernel.py:323-384): the row
+  sums (m,) and sum of squares of the masked Gram block, one block per row
+  block writing its row sums once.
+* ``pair_stats_grad_a`` (``csrc/pair_stats.cu``) replaces
+  ``_stats_bwd_kernel``/``_pair_stats_grad_a`` (mmd_kernel.py:387-452):
+  dS/da of S = sum_i u_i row_i + sum_j v_j col_j + c sum k^2, the design of
+  ``pair_sum_grad_a`` with coeff = u_i + v_j + 2 c k_ij.
 
 Bound on the card: launch latency at the flagship's 64 x 16 features;
 float32 operations (d FMAs plus the mixture's exp/log1p per pair) at
-large m, n.  See the source for the design.
+large m, n.  See the sources for the design.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and uses
-its plain PyTorch version (``pair_sum_plain``, ``pair_sum_grad_a_plain``)
-only for a tensor on the CPU.  ``<wrapper>.launches`` counts kernel
-launches.  Inputs are cast to float32, as ``_tile_pad`` does; no padding
-is needed, the kernels mask ragged edges themselves.
+its plain PyTorch version (``<wrapper>_plain``) only for a tensor on the
+CPU.  ``<wrapper>.launches`` counts kernel launches.  Inputs are cast to
+float32, as ``_tile_pad`` does; no padding is needed, the kernels mask
+ragged edges themselves.
+
+The differentiable pieces: ``make_fused_mmd_sums``/``fused_mmd2`` (single
+device), and ``make_pair_sum``, ``make_row_stats``, ``make_pair_stats``
+(the blocks of the ring estimators).  All are first-order only.
 """
 
 from __future__ import annotations
@@ -130,6 +144,30 @@ def pair_sum_grad_a_plain(a: Tensor, b: Tensor, kernel: str, params,
     return torch.sum(grow, dim=1, keepdim=True) * a - gmat @ b
 
 
+def pair_stats_plain(a: Tensor, b: Tensor, kernel: str, params,
+                     exclude_diag: bool, add_dot: float = 0.0
+                     ) -> Tuple[Tensor, Tensor]:
+    """Plain version of the ``pair_stats`` kernel."""
+    d2, dot = _dists(a, b)
+    k = _mixture_k(d2, kernel, params, add_dot, dot)
+    k = torch.where(_mask(a.shape[0], b.shape[0], exclude_diag, a.device), k, 0.0)
+    return torch.sum(k, dim=1), torch.sum(k * k)
+
+
+def pair_stats_grad_a_plain(a: Tensor, b: Tensor, u: Tensor, v: Tensor,
+                            c_sq: Tensor, kernel: str, params,
+                            exclude_diag: bool, add_dot: float = 0.0) -> Tensor:
+    """Plain version of the ``pair_stats_grad_a`` kernel."""
+    d2, dot = _dists(a, b)
+    k = _mixture_k(d2, kernel, params, add_dot, dot)
+    g = _mixture_g(d2, kernel, params)
+    mask = _mask(a.shape[0], b.shape[0], exclude_diag, a.device)
+    coeff = u[:, None] + v[None, :] + 2.0 * c_sq * k
+    t = torch.where(mask, coeff * g, 0.0)
+    tmat = t if not add_dot else torch.where(mask, coeff * (g - 0.5 * add_dot), 0.0)
+    return torch.sum(t, dim=1, keepdim=True) * a - tmat @ b
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
@@ -165,9 +203,22 @@ def _mix(kernel: str, params, add_dot: float) -> _Mix:
     return mix
 
 
+def _prepare_coeffs(a: Tensor, b: Tensor, u: Tensor, v: Tensor,
+                    c_sq: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """u (m,), v (n,) and the scalar c_sq as float32 on a's device."""
+    if u.shape != (a.shape[0],) or v.shape != (b.shape[0],) or c_sq.numel() != 1:
+        raise ValueError(f"coefficients u {tuple(u.shape)}, v {tuple(v.shape)}, "
+                         f"c_sq {tuple(c_sq.shape)} for a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if not u.device == v.device == c_sq.device == a.device:
+        raise ValueError("coefficients on another device than the features")
+    return (u.float().contiguous(), v.float().contiguous(),
+            c_sq.float().reshape(()).contiguous())
+
+
 @functools.cache
 def _pair_sum_lib() -> ctypes.CDLL:
-    lib = build.library()
+    lib = build.library("pair_sum.cu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.smmdax_pair_sum_partials.argtypes = [ci, ci]
     lib.smmdax_pair_sum_partials.restype = ci
@@ -175,6 +226,19 @@ def _pair_sum_lib() -> ctypes.CDLL:
     lib.smmdax_pair_sum_fwd.restype = ci
     lib.smmdax_pair_sum_grad_a.argtypes = [vp, vp, vp, ci, ci, ci, ci, _Mix, vp]
     lib.smmdax_pair_sum_grad_a.restype = ci
+    return lib
+
+
+@functools.cache
+def _pair_stats_lib() -> ctypes.CDLL:
+    lib = build.library("pair_stats.cu")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.smmdax_pair_stats_partials.argtypes = [ci]
+    lib.smmdax_pair_stats_partials.restype = ci
+    lib.smmdax_pair_stats_fwd.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, ci, ci, _Mix, vp]
+    lib.smmdax_pair_stats_fwd.restype = ci
+    lib.smmdax_pair_stats_grad_a.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, _Mix, vp]
+    lib.smmdax_pair_stats_grad_a.restype = ci
     return lib
 
 
@@ -229,6 +293,64 @@ def pair_sum_grad_a(a: Tensor, b: Tensor, kernel: str, params,
 pair_sum_grad_a.launches = 0
 
 
+def pair_stats(a: Tensor, b: Tensor, kernel: str, params, exclude_diag: bool,
+               add_dot: float = 0.0) -> Tuple[Tensor, Tensor]:
+    """(rows, sum_sq): the row sums (m,) and the sum of squared entries of
+    the masked Gram block k(d2(a_i, b_j)), float32."""
+    a, b = _prepare(a, b, kernel, params, add_dot)
+    if a.device.type == "cpu":
+        return pair_stats_plain(a, b, kernel, params, exclude_diag, add_dot)
+    lib = _pair_stats_lib()
+    (m, d), n = a.shape, b.shape[0]
+    num = lib.smmdax_pair_stats_partials(m)
+    partials = torch.empty(num, dtype=torch.float32, device=a.device)
+    rows = torch.empty(m, dtype=torch.float32, device=a.device)
+    sum_sq = torch.empty((), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.smmdax_pair_stats_fwd(
+            a.data_ptr(), b.data_ptr(), rows.data_ptr(), partials.data_ptr(), num,
+            sum_sq.data_ptr(), m, n, d, int(exclude_diag),
+            _mix(kernel, params, add_dot), _stream(a))
+    build.check(lib, err, "pair_stats")
+    pair_stats.launches += 1
+    return rows, sum_sq
+
+
+pair_stats.launches = 0
+
+
+def pair_stats_grad_a(a: Tensor, b: Tensor, u: Tensor, v: Tensor, c_sq: Tensor,
+                      kernel: str, params, exclude_diag: bool,
+                      add_dot: float = 0.0) -> Tensor:
+    """d/da of S = sum_i u_i rows_i + sum_j v_j cols_j + c_sq * sum_sq
+    without the pair factor 2, shape of a.  ``c_sq`` is a one-element
+    tensor on a's device (read there, never on the host)."""
+    a, b = _prepare(a, b, kernel, params, add_dot)
+    u, v, c_sq = _prepare_coeffs(a, b, u, v, c_sq)
+    if a.device.type == "cpu":
+        return pair_stats_grad_a_plain(a, b, u, v, c_sq, kernel, params,
+                                       exclude_diag, add_dot)
+    lib = _pair_stats_lib()
+    (m, d), n = a.shape, b.shape[0]
+    da = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        err = lib.smmdax_pair_stats_grad_a(
+            a.data_ptr(), b.data_ptr(), u.data_ptr(), v.data_ptr(), c_sq.data_ptr(),
+            da.data_ptr(), m, n, d, int(exclude_diag),
+            _mix(kernel, params, add_dot), _stream(a))
+    build.check(lib, err, "pair_stats_grad_a")
+    pair_stats_grad_a.launches += 1
+    return da
+
+
+pair_stats_grad_a.launches = 0
+
+
+def kernel_launch_counters():
+    """The four kernel wrappers, whose ``.launches`` count their launches."""
+    return (pair_sum, pair_sum_grad_a, pair_stats, pair_stats_grad_a)
+
+
 # ---------------------------------------------------------------------------
 # public: differentiable sufficient statistics + mmd2
 
@@ -275,6 +397,100 @@ def make_fused_mmd_sums(kernel: str, params: Sequence[float],
         return _FusedMMDSums.apply(x, y, kernel, params, add_dot)
 
     return fused_sums
+
+
+class _PairSum(torch.autograd.Function):
+    """S(a, b) = sum_ij mask * k(d2(a_i, b_j)), first-order differentiable
+    in a and b (mmd_kernel.py:516-545).  When a and b are one tensor the
+    two cotangents add up to the factor-4 gradient of a self block."""
+
+    @staticmethod
+    def forward(ctx, a, b, kernel, params, exclude_diag, add_dot):
+        ctx.save_for_backward(a, b)
+        ctx.kernel = (kernel, params, exclude_diag, add_dot)
+        return pair_sum(a, b, kernel, params, exclude_diag, add_dot)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, c):
+        a, b = ctx.saved_tensors
+        kernel, params, excl, add_dot = ctx.kernel
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = ((2.0 * c) * pair_sum_grad_a(a, b, kernel, params, excl, add_dot)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = ((2.0 * c) * pair_sum_grad_a(b, a, kernel, params, excl, add_dot)).to(b.dtype)
+        return da, db, None, None, None, None
+
+
+def make_pair_sum(kernel: str, params: Sequence[float], exclude_diag: bool,
+                  add_dot: float = 0.0):
+    """Differentiable fused S(a, b) = sum_ij mask * k(d2(a_i, b_j)): the
+    block the ring estimator sums over its rotations."""
+    kernel, params, add_dot = canon_kernel(kernel, params, add_dot)
+
+    def pair_sum_fn(a: Tensor, b: Tensor) -> Tensor:
+        return _PairSum.apply(a, b, kernel, params, exclude_diag, add_dot)
+
+    return pair_sum_fn
+
+
+class _RowStats(torch.autograd.Function):
+    """(rows (m,), sum_sq) of the masked Gram block, first-order
+    differentiable (mmd_kernel.py:455-497).  The backward runs the stats
+    gradient kernel twice, factor 2 from d(d2)/da: for a with (u, 0), and
+    for b as the swapped block, whose own rows carry no cotangent and
+    whose columns carry u."""
+
+    @staticmethod
+    def forward(ctx, a, b, kernel, params, exclude_diag, add_dot):
+        ctx.save_for_backward(a, b)
+        ctx.kernel = (kernel, params, exclude_diag, add_dot)
+        return pair_stats(a, b, kernel, params, exclude_diag, add_dot)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, u, c_sq):
+        a, b = ctx.saved_tensors
+        kernel, params, excl, add_dot = ctx.kernel
+        zn = torch.zeros(b.shape[0], dtype=torch.float32, device=b.device)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = (2.0 * pair_stats_grad_a(a, b, u, zn, c_sq, kernel, params, excl,
+                                          add_dot)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = (2.0 * pair_stats_grad_a(b, a, zn, u, c_sq, kernel, params, excl,
+                                          add_dot)).to(b.dtype)
+        return da, db, None, None, None, None
+
+
+def make_row_stats(kernel: str, params: Sequence[float], exclude_diag: bool,
+                   add_dot: float = 0.0):
+    """Differentiable fused block statistics
+    ``row_stats(a, b) -> (row_sums (m,), sum_sq ())`` of the masked
+    mixture Gram block.  Column sums are the row sums of the swapped call."""
+    kernel, params, add_dot = canon_kernel(kernel, params, add_dot)
+
+    def row_stats(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+        return _RowStats.apply(a, b, kernel, params, exclude_diag, add_dot)
+
+    return row_stats
+
+
+def make_pair_stats(kernel: str, params: Sequence[float], exclude_diag: bool,
+                    add_dot: float = 0.0):
+    """``stats(a, b) -> (row_sums, col_sums, sum_sq)`` of a masked Gram
+    block: two row-stats sweeps (the columns are the rows of the swapped
+    block).  The ring estimator calls ``make_row_stats`` directly and
+    skips the column sweep where it needs none."""
+    rs = make_row_stats(kernel, params, exclude_diag, add_dot=add_dot)
+
+    def stats(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        rows, sq = rs(a, b)
+        cols, _ = rs(b, a)
+        return rows, cols, sq
+
+    return stats
 
 
 def fused_mmd2(x: Tensor, y: Tensor, kernel: str = "rq",

@@ -14,8 +14,13 @@ from smmdax_torch.kernels.kernels import (  # noqa: F401
 )
 from smmdax_torch.kernels.mmd import (  # noqa: F401
     MMDSums,
+    VarStats,
     mmd2,
+    mmd2_and_ratio,
+    mmd2_and_variance,
+    mmd2_and_variance_from_stats,
     mmd2_from_sums,
     mmd_sums,
+    var_stats_from_blocks,
 )
 from smmdax_torch.kernels.smmd import smmd_scale  # noqa: F401

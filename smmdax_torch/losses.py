@@ -1,5 +1,5 @@
-"""Loss dispatch: mmd | smmd | sn-smmd | wgan-gp (port of
-``smmdax/losses.py``, single-device path).
+"""Loss dispatch: mmd | tmmd | smmd | sn-smmd | wgan-gp (port of
+``smmdax/losses.py``).
 
 Losses are functions of a critic callable ``critic(x) -> (B, dof_dim)``
 features, as in the JAX package.  Noise enters as arguments: the
@@ -13,8 +13,12 @@ Estimators of sigma (``Config.scaling_grad_estimator``):
 ``create_graph=True`` (the critic step) sigma stays differentiable in the
 critic's parameters: double backprop, as in the JAX package.
 
-The tmmd model and the data-parallel / ring paths (``axis_name``) wait
-for the multi-GPU slice and raise ``NotImplementedError``.
+Data parallelism: with ``axis`` (a ``DataAxis``) ``real``/``fake`` are
+this rank's blocks and every statistic is over the global batch: the ring
+estimators (``use_ring_mmd``) or gathered features for the kernel terms,
+``pmean`` for per-sample means, sigma and the penalties.  So the loss
+value, and the pmean of the ranks' gradients, are those of the
+single-device global-batch computation.
 """
 
 from __future__ import annotations
@@ -26,15 +30,16 @@ import torch
 from smmdax_torch.configs import Config
 from smmdax_torch.cuda.dispatch import should_use_pallas
 from smmdax_torch.cuda.mmd_kernel import fused_mmd2
-from smmdax_torch.kernels import kernel_cross, kernel_matrices, mmd2
+from smmdax_torch.kernels import (kernel_cross, kernel_matrices, mmd2,
+                                  mmd2_and_ratio)
 from smmdax_torch.kernels.kernels import KernelBlocks
 from smmdax_torch.kernels.smmd import smmd_scale
+from smmdax_torch.parallel.collectives import DataAxis
+from smmdax_torch.parallel.ring import (RING_KERNELS, ring_mmd2,
+                                        ring_mmd2_and_ratio)
 
 Tensor = torch.Tensor
 Critic = Callable[[Tensor], Tensor]
-
-_LATER = "waits for the multi-GPU slice of the port"
-
 
 class LossAux(NamedTuple):
     """Diagnostics reported every step."""
@@ -62,10 +67,21 @@ def _add_dot(cfg: Config) -> float:
     return cfg.kernel_add_dot if cfg.kernel == "rq" else 0.0
 
 
-def _fused(cfg: Config, f_a: Tensor, f_b: Tensor) -> bool:
+def _fused(cfg: Config, f_a: Tensor, f_b: Tensor,
+           axis: Optional[DataAxis] = None) -> bool:
+    """Fused-vs-dense decision for the Gram blocks of these features.  A
+    multi-shard config without an axis (a global-batch program) never
+    fuses, as in the JAX package, where the kernels run per shard only."""
+    if axis is None and cfg.num_data_shards > 1:
+        return False
     return should_use_pallas(cfg.use_pallas, cfg.kernel, f_a.shape[0],
                              f_b.shape[0], min_rows=cfg.pallas_min_rows,
                              platform=f_a.device.type)
+
+
+def _ring_eligible(cfg: Config, axis: Optional[DataAxis]) -> bool:
+    """The ring estimators serve every loss-surface kernel per rank."""
+    return axis is not None and cfg.use_ring_mmd and cfg.kernel in RING_KERNELS
 
 
 def _critic_features(cfg: Config, critic: Critic, real: Tensor,
@@ -78,13 +94,42 @@ def _critic_features(cfg: Config, critic: Critic, real: Tensor,
     return critic(real), critic(fake)
 
 
+def _gather(f: Tensor, axis: Optional[DataAxis]) -> Tensor:
+    """This rank's (b, d) features -> the global (B_g, d) on every rank."""
+    return f if axis is None else axis.all_gather(f)
+
+
+def _pmean(v: Tensor, axis: Optional[DataAxis]) -> Tensor:
+    return v if axis is None else axis.pmean(v)
+
+
 def mmd2_objective(cfg: Config, f_fake: Tensor, f_real: Tensor,
-                   axis_name: Optional[str] = None) -> Tensor:
-    """MMD^2 over the batch: the fused CUDA pair sums when dispatched
-    (``use_pallas``), else the dense Gram blocks (the oracle path)."""
-    if axis_name is not None:
-        raise NotImplementedError(f"data-parallel MMD ({axis_name!r}) {_LATER}")
-    if _fused(cfg, f_fake, f_real):
+                   axis: Optional[DataAxis] = None) -> Tensor:
+    """Global-batch MMD^2 over the configured path:
+
+    * ``global_batch_mmd=False`` with an axis: each rank's local estimator,
+      averaged over ranks;
+    * ``use_ring_mmd`` with an axis: the block-row ring over this rank's
+      features;
+    * otherwise the gathered features through the fused CUDA pair sums
+      when dispatched (``use_pallas``), else the dense Gram blocks (the
+      oracle path)."""
+    if axis is not None and not cfg.global_batch_mmd:
+        if _fused(cfg, f_fake, f_real, axis):
+            local = fused_mmd2(f_fake, f_real, cfg.kernel, _kernel_params(cfg),
+                               add_dot=_add_dot(cfg))
+        else:
+            local = mmd2(_blocks(cfg, f_fake, f_real))
+        return axis.pmean(local)
+    if _ring_eligible(cfg, axis):
+        # the ring's pair sums see (local b, local b) blocks
+        return ring_mmd2(f_fake, f_real, axis, cfg.kernel,
+                         rbf_sigmas=cfg.rbf_sigmas, rq_alphas=cfg.rq_alphas,
+                         use_pallas=_fused(cfg, f_fake, f_real, axis),
+                         add_dot=_add_dot(cfg))
+    f_fake = _gather(f_fake, axis)
+    f_real = _gather(f_real, axis)
+    if _fused(cfg, f_fake, f_real, axis):
         return fused_mmd2(f_fake, f_real, cfg.kernel, _kernel_params(cfg),
                           add_dot=_add_dot(cfg))
     return mmd2(_blocks(cfg, f_fake, f_real))
@@ -202,75 +247,87 @@ def _zero(like: Tensor, value: float = 0.0) -> Tensor:
 
 def critic_loss(cfg: Config, critic: Critic, real: Tensor, fake: Tensor,
                 probe: Optional[Tensor] = None, eps: Optional[Tensor] = None,
-                axis_name: Optional[str] = None) -> Tuple[Tensor, LossAux]:
-    """The critic-step objective (minimized)."""
-    if axis_name is not None:
-        raise NotImplementedError(f"data-parallel losses {_LATER}")
+                axis: Optional[DataAxis] = None) -> Tuple[Tensor, LossAux]:
+    """The critic-step objective (minimized).  With ``axis``, ``real`` and
+    ``fake`` are this rank's blocks and the loss is the global one."""
     f_real, f_fake = _critic_features(cfg, critic, real, fake)
 
     if cfg.model == "wgan-gp":
-        h_real = torch.mean(_scalar_critic(f_real))
-        h_fake = torch.mean(_scalar_critic(f_fake))
-        gp = wgan_gradient_penalty(cfg, critic, real, fake, eps)
+        h_real = _pmean(torch.mean(_scalar_critic(f_real)), axis)
+        h_fake = _pmean(torch.mean(_scalar_critic(f_fake)), axis)
+        gp = _pmean(wgan_gradient_penalty(cfg, critic, real, fake, eps), axis)
         loss = h_fake - h_real + cfg.gradient_penalty * gp
         if cfg.L2_discriminator_penalty > 0:
-            loss = loss + cfg.L2_discriminator_penalty * 0.5 * (
-                torch.mean(f_real ** 2) + torch.mean(f_fake ** 2))
+            loss = loss + cfg.L2_discriminator_penalty * 0.5 * _pmean(
+                torch.mean(f_real ** 2) + torch.mean(f_fake ** 2), axis)
         aux = LossAux(mmd2=_zero(loss), sigma=_zero(loss, 1.0), gp=gp,
                       ratio=_zero(loss), critic_real=h_real, critic_fake=h_fake)
         return loss, aux
 
     if cfg.model == "tmmd":
-        raise NotImplementedError(f"the tmmd model {_LATER}")
-    mmd2_val = mmd2_objective(cfg, f_fake, f_real)
-    objective = mmd2_val
+        if _ring_eligible(cfg, axis):
+            # the Sutherland variance is all row sums and squared sums,
+            # psum-able over row blocks: no global Gram block
+            mmd2_val, objective = ring_mmd2_and_ratio(
+                f_fake, f_real, axis, cfg.kernel,
+                rbf_sigmas=cfg.rbf_sigmas, rq_alphas=cfg.rq_alphas,
+                use_pallas=_fused(cfg, f_fake, f_real, axis),
+                add_dot=_add_dot(cfg))
+        else:
+            # dense: the variance estimator over full (gathered) Gram blocks
+            mmd2_val, objective = mmd2_and_ratio(
+                _blocks(cfg, _gather(f_fake, axis), _gather(f_real, axis)))
+    else:
+        mmd2_val = mmd2_objective(cfg, f_fake, f_real, axis)
+        objective = mmd2_val
 
     sigma = _zero(mmd2_val, 1.0)
     if cfg.with_scaling:
-        sigma = sobolev_scale(cfg, critic, real, probe)
+        sigma = _pmean(sobolev_scale(cfg, critic, real, probe), axis)
         objective = objective / sigma
 
     loss = -objective
     gp = _zero(mmd2_val)
     if cfg.gradient_penalty > 0:
-        gp = witness_gradient_penalty(cfg, critic, real, fake, f_real, f_fake, eps)
+        gp = _pmean(witness_gradient_penalty(
+            cfg, critic, real, fake, _gather(f_real, axis),
+            _gather(f_fake, axis), eps), axis)
         loss = loss + cfg.gradient_penalty * gp
     if cfg.L2_discriminator_penalty > 0:
-        loss = loss + cfg.L2_discriminator_penalty * 0.5 * (
-            torch.mean(f_real ** 2) + torch.mean(f_fake ** 2))
+        loss = loss + cfg.L2_discriminator_penalty * 0.5 * _pmean(
+            torch.mean(f_real ** 2) + torch.mean(f_fake ** 2), axis)
 
     aux = LossAux(mmd2=mmd2_val, sigma=sigma, gp=gp, ratio=objective,
-                  critic_real=torch.mean(_scalar_critic(f_real)),
-                  critic_fake=torch.mean(_scalar_critic(f_fake)))
+                  critic_real=_pmean(torch.mean(_scalar_critic(f_real)), axis),
+                  critic_fake=_pmean(torch.mean(_scalar_critic(f_fake)), axis))
     return loss, aux
 
 
 def generator_loss(cfg: Config, critic: Critic, real: Tensor, fake: Tensor,
                    scale_g_loss: bool = True, probe: Optional[Tensor] = None,
-                   axis_name: Optional[str] = None) -> Tuple[Tensor, LossAux]:
+                   axis: Optional[DataAxis] = None) -> Tuple[Tensor, LossAux]:
     """The generator-step objective (minimized).  sigma, when applied, is
-    a constant for the generator (stop-gradient)."""
-    if axis_name is not None:
-        raise NotImplementedError(f"data-parallel losses {_LATER}")
+    a constant for the generator (stop-gradient).  The tmmd generator
+    minimizes MMD^2, as in the JAX package."""
     f_real, f_fake = _critic_features(cfg, critic, real, fake)
 
     if cfg.model == "wgan-gp":
-        h_real = torch.mean(_scalar_critic(f_real))
-        h_fake = torch.mean(_scalar_critic(f_fake))
+        h_real = _pmean(torch.mean(_scalar_critic(f_real)), axis)
+        h_fake = _pmean(torch.mean(_scalar_critic(f_fake)), axis)
         aux = LossAux(mmd2=_zero(h_fake), sigma=_zero(h_fake, 1.0),
                       gp=_zero(h_fake), ratio=_zero(h_fake),
                       critic_real=h_real, critic_fake=h_fake)
         return -h_fake, aux
 
-    mmd2_val = mmd2_objective(cfg, f_fake, f_real)
+    mmd2_val = mmd2_objective(cfg, f_fake, f_real, axis)
     loss = mmd2_val
     sigma = _zero(mmd2_val, 1.0)
     if cfg.with_scaling and scale_g_loss:
-        sigma = sobolev_scale(cfg, critic, real, probe,
-                              create_graph=False).detach()
+        sigma = _pmean(sobolev_scale(cfg, critic, real, probe,
+                                     create_graph=False), axis).detach()
         loss = loss / sigma
     aux = LossAux(mmd2=mmd2_val, sigma=sigma, gp=_zero(mmd2_val),
                   ratio=mmd2_val,
-                  critic_real=torch.mean(_scalar_critic(f_real)),
-                  critic_fake=torch.mean(_scalar_critic(f_fake)))
+                  critic_real=_pmean(torch.mean(_scalar_critic(f_real)), axis),
+                  critic_fake=_pmean(torch.mean(_scalar_critic(f_fake)), axis))
     return loss, aux

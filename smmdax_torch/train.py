@@ -1,5 +1,4 @@
-"""Training macro-step and sampling (port of ``smmdax/train.py``, single
-device).
+"""Training macro-step and sampling (port of ``smmdax/train.py``).
 
 The JAX package threads an immutable ``TrainState`` through one jitted
 program.  Here the state holds the two ``nn.Module``s (their parameters,
@@ -21,6 +20,16 @@ updates, as ``smmdax.train.build_train_step``:
 Adam is ``optax.scale_by_adam`` (eps 1e-8, bias-corrected) with the
 learning rate applied by hand from ``state.lr_d`` / ``state.lr_g``,
 written out so the order of operations matches.
+
+Data parallelism is the counterpart of ``jit_train_step(mode="shard_map")``:
+one process per rank runs the per-rank program ``build_train_step(...,
+axis=axis)`` on its block of the batch, with its own noise stream
+(``create_state(..., rank=...)``), the global-batch losses of
+``smmdax_torch.losses`` (ring or gathered), and the gradients and the
+generator's BN running averages pmean'd over the ranks, so the state
+stays identical on every rank.  Each rank normalises with the batch
+statistics of its own block (no synced BN).  ``data_parallel_train_step``
+takes the global macro-batch and hands each rank its block.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from smmdax_torch.configs import Config
 from smmdax_torch.data.transforms import normalize_uint8
 from smmdax_torch.losses import LossAux, critic_loss, generator_loss
 from smmdax_torch.nn import build_models
+from smmdax_torch.parallel.collectives import DataAxis
 
 Tensor = torch.Tensor
 Noise = Dict[str, Tensor]
@@ -89,16 +99,19 @@ def _adam_init(module: nn.Module) -> AdamState:
         nu={n: torch.zeros_like(p) for n, p in module.named_parameters()})
 
 
-def create_state(cfg: Config, seed: int = 0, device="cuda") -> TrainState:
+def create_state(cfg: Config, seed: int = 0, device="cuda",
+                 rank: int = 0) -> TrainState:
     """Fresh state: weights drawn from ``seed`` (on the CPU, so every
-    device starts from the same weights), noise stream seeded on the
-    device."""
+    device and rank starts from the same weights), noise stream seeded on
+    the device.  Each data-parallel ``rank`` draws from a stream of its
+    own (the counterpart of JAX's ``fold_in(rng, axis_index)``); rank 0's
+    is the single-device stream."""
     dev = resolve_device(device)
     gen, disc = build_models(cfg, torch.Generator().manual_seed(seed))
     gen.to(dev)
     disc.to(dev)
     noise = torch.Generator(device=dev)
-    noise.manual_seed(seed + 1)
+    noise.manual_seed(seed + 1 + (rank << 32))
 
     def shadow(tensors):
         return {n: t.detach().clone() for n, t in tensors}
@@ -171,6 +184,17 @@ def _apply_update(cfg: Config, module: nn.Module, grads, opt: AdamState,
         torch._foreach_add_(params, updates)
 
 
+def _pmean_(tensors, axis: Optional[DataAxis]) -> None:
+    """Replace each tensor by its mean over the ranks, in place, with one
+    all-reduce over their concatenation."""
+    if axis is None or not tensors:
+        return
+    with torch.no_grad():
+        flat = axis.pmean(torch.cat([t.reshape(-1) for t in tensors]))
+        for t, f in zip(tensors, torch.split(flat, [t.numel() for t in tensors])):
+            t.copy_(f.view_as(t))
+
+
 def _ema_update(decay: float, shadow: Dict[str, Tensor],
                 live: Dict[str, Tensor]) -> None:
     """shadow <- decay * shadow + (1 - decay) * live, in place."""
@@ -183,22 +207,30 @@ def _ema_update(decay: float, shadow: Dict[str, Tensor],
 
 
 def _d_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
-              probe: Optional[Tensor], eps: Optional[Tensor]) -> LossAux:
+              probe: Optional[Tensor], eps: Optional[Tensor],
+              axis: Optional[DataAxis] = None) -> LossAux:
     with torch.no_grad():
         fake = _generate(state.gen, z, update_stats=False)
     _refresh_spectral(cfg, state.disc, real.device)
-    loss, aux = critic_loss(cfg, state.disc, real, fake, probe=probe, eps=eps)
+    loss, aux = critic_loss(cfg, state.disc, real, fake, probe=probe, eps=eps,
+                            axis=axis)
     grads = torch.autograd.grad(loss, list(state.disc.parameters()))
+    _pmean_(grads, axis)
     _apply_update(cfg, state.disc, grads, state.d_opt, state.lr_d)
     return aux
 
 
 def _g_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
-              probe: Optional[Tensor]) -> LossAux:
+              probe: Optional[Tensor], axis: Optional[DataAxis] = None) -> LossAux:
     with _frozen(state.disc):
         fake = _generate(state.gen, z, update_stats=True)
-        loss, aux = generator_loss(cfg, state.disc, real, fake, probe=probe)
+        loss, aux = generator_loss(cfg, state.disc, real, fake, probe=probe,
+                                   axis=axis)
         grads = torch.autograd.grad(loss, list(state.gen.parameters()))
+    _pmean_(grads, axis)
+    # each rank normalised with its own block's statistics; the running
+    # averages are pmean'd so the state stays replicated
+    _pmean_([b for _, b in state.gen.named_buffers()], axis)
     _apply_update(cfg, state.gen, grads, state.g_opt, state.lr_g)
     if cfg.ema_decay > 0:
         if state.g_params_ema is None or state.g_stats_ema is None:
@@ -224,13 +256,22 @@ def _needs_eps(cfg: Config) -> bool:
     return cfg.model == "wgan-gp" or cfg.gradient_penalty > 0
 
 
-def draw_noise(cfg: Config, state: TrainState, dsteps: int,
-               gsteps: int) -> Noise:
-    """Every random draw of one macro-step, from ``state.generator`` on
-    the device: latents ``d_z``/``g_z`` uniform in [-1, 1], Rademacher
-    probes ``d_probe``/``g_probe`` (hutchinson sigma), and the penalty's
-    interpolation weights ``d_eps`` (b, 1, 1, 1) per critic update."""
+def _fake_count(cfg: Config, axis: Optional[DataAxis]) -> int:
+    """Generated batch per update: global without an axis, this rank's
+    share with one (batch_size is the global fake batch)."""
+    return cfg.batch_size if axis is None else cfg.batch_size // axis.size
+
+
+def draw_noise(cfg: Config, state: TrainState, dsteps: int, gsteps: int,
+               axis: Optional[DataAxis] = None) -> Noise:
+    """Every random draw of one macro-step (this rank's, with ``axis``),
+    from ``state.generator`` on the device: latents ``d_z``/``g_z``
+    uniform in [-1, 1], Rademacher probes ``d_probe``/``g_probe``
+    (hutchinson sigma), and the penalty's interpolation weights ``d_eps``
+    (b, 1, 1, 1) per critic update."""
     dev, g = state.device, state.generator
+    nz = _fake_count(cfg, axis)
+    n_real = cfg.real_batch_size if axis is None else cfg.real_batch_size // axis.size
 
     def uniform(shape, lo=0.0, hi=1.0):
         return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
@@ -238,14 +279,13 @@ def draw_noise(cfg: Config, state: TrainState, dsteps: int,
     def rademacher(shape):
         return torch.randint(0, 2, shape, generator=g, device=dev).float() * 2.0 - 1.0
 
-    noise = {"d_z": uniform((dsteps, cfg.batch_size, cfg.z_dim), -1.0, 1.0),
-             "g_z": uniform((gsteps, cfg.batch_size, cfg.z_dim), -1.0, 1.0)}
+    noise = {"d_z": uniform((dsteps, nz, cfg.z_dim), -1.0, 1.0),
+             "g_z": uniform((gsteps, nz, cfg.z_dim), -1.0, 1.0)}
     if _needs_probe(cfg):
         noise["d_probe"] = rademacher((dsteps, cfg.dof_dim))
         noise["g_probe"] = rademacher((gsteps, cfg.dof_dim))
     if _needs_eps(cfg):
-        b = min(cfg.batch_size, cfg.real_batch_size)
-        noise["d_eps"] = uniform((dsteps, b, 1, 1, 1))
+        noise["d_eps"] = uniform((dsteps, min(nz, n_real), 1, 1, 1))
     return noise
 
 
@@ -253,18 +293,18 @@ def _pick(noise: Noise, key: str, i: int) -> Optional[Tensor]:
     return noise[key][i] if key in noise else None
 
 
-def build_train_step(cfg: Config, dsteps: int, gsteps: int
+def build_train_step(cfg: Config, dsteps: int, gsteps: int,
+                     axis: Optional[DataAxis] = None
                      ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
     """``train_step(state, real, noise=None) -> (state, metrics)``.
 
     ``real``: (dsteps + gsteps, B, H, W, C), uint8 (normalized here) or
-    float in [-1, 1], numpy or torch.  ``noise``: every draw of the
-    macro-step (keys as ``draw_noise``), e.g. to replay another
-    implementation's draws; drawn from ``state.generator`` when None.
-    Metrics are 0-d device tensors with the JAX package's keys."""
-    if cfg.num_data_shards > 1:
-        raise NotImplementedError(
-            "data-parallel training waits for the multi-GPU slice of the port")
+    float in [-1, 1], numpy or torch; with ``axis``, this rank's block of
+    the global batch (the per-rank program of JAX's ``shard_map`` mode).
+    ``noise``: every draw of the macro-step (keys as ``draw_noise``), e.g.
+    to replay another implementation's draws; drawn from
+    ``state.generator`` when None.  Metrics are 0-d device tensors with
+    the JAX package's keys, global over the ranks."""
 
     def train_step(state: TrainState, real, noise: Optional[Noise] = None):
         dev = state.device
@@ -275,17 +315,18 @@ def build_train_step(cfg: Config, dsteps: int, gsteps: int
             raise ValueError(f"real carries {real.shape[0]} updates' batches, "
                              f"the step runs {dsteps} + {gsteps}")
         if noise is None:
-            noise = draw_noise(cfg, state, dsteps, gsteps)
+            noise = draw_noise(cfg, state, dsteps, gsteps, axis)
         else:
             noise = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
                      for k, v in noise.items()}
 
         for i in range(dsteps):
             d_aux = _d_update(cfg, state, real[i], noise["d_z"][i],
-                              _pick(noise, "d_probe", i), _pick(noise, "d_eps", i))
+                              _pick(noise, "d_probe", i), _pick(noise, "d_eps", i),
+                              axis)
         for j in range(gsteps):
             g_aux = _g_update(cfg, state, real[dsteps + j], noise["g_z"][j],
-                              _pick(noise, "g_probe", j))
+                              _pick(noise, "g_probe", j), axis)
         state.step += 1
         metrics = {
             "d_loss_mmd2": d_aux.mmd2,
@@ -300,6 +341,36 @@ def build_train_step(cfg: Config, dsteps: int, gsteps: int
             "lr_g": state.lr_g,
         }
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def data_parallel_train_step(cfg: Config, dsteps: int, gsteps: int,
+                             axis: Optional[DataAxis]
+                             ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+    """The counterpart of ``jit_train_step(mode="shard_map")``:
+    ``train_step(state, real, noise=None)`` with ``real`` the GLOBAL
+    macro-batch (dsteps + gsteps, B, ...), of which this rank takes its
+    contiguous block along dim 1.  ``cfg.num_data_shards`` is pinned to
+    the axis size; a one-rank axis (or none) runs the single-device
+    program.  ``noise`` is this rank's."""
+    if axis is None or axis.size == 1:
+        return build_train_step(cfg.replace(num_data_shards=1), dsteps, gsteps)
+    n = axis.size
+    if cfg.batch_size % n or cfg.real_batch_size % n:
+        raise ValueError(
+            f"data-parallel training needs batch sizes divisible by the ranks "
+            f"({cfg.batch_size}/{cfg.real_batch_size} vs {n} ranks)")
+    step = build_train_step(cfg.replace(num_data_shards=n), dsteps, gsteps,
+                            axis=axis)
+
+    def train_step(state: TrainState, real, noise: Optional[Noise] = None):
+        real = torch.as_tensor(real)
+        if real.shape[1] % n:
+            raise ValueError(f"a global batch of {real.shape[1]} does not "
+                             f"split over {n} ranks")
+        b = real.shape[1] // n
+        return step(state, real[:, axis.index * b:(axis.index + 1) * b], noise)
 
     return train_step
 
