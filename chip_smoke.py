@@ -2,6 +2,11 @@
 """Drive the PyTorch port (``smmdax_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --tree DIR --only profile
+
+(The second form profiles the bf16 steps of phases 3 and 4 of the
+``smmdax_torch`` in DIR, e.g. an earlier commit unpacked by ``git
+archive``, to compare its kernels' device time with this tree's.)
 
 Phases, each fatal on failure:
 
@@ -12,13 +17,18 @@ Phases, each fatal on failure:
    diagonal and cross blocks; at 64x16, ragged 100x60x16, 4096x16 and
    8192x128), and the ``fused_mmd2`` gradients to the dense oracle's; time
    kernels and plain versions with CUDA events;
-2b. the same for both pair-stats kernels (non-zero u, v and c), and the
-   ``make_pair_stats`` gradients to the dense oracle's;
+2b. the same for both pair-stats kernels (non-zero u, v and c): rows,
+   columns and sum of squares of the one-sweep forward, da and db of the
+   one-sweep gradient, and the single-side ``pair_stats`` /
+   ``pair_stats_grad_a`` calls, also at shapes ragged against their tiles;
+   a second launch on the same inputs must repeat the first bit for bit;
+   and the ``make_pair_stats`` gradients to the dense oracle's;
 3. the flagship training macro-step at full width (sn-smmd, rq mixture,
    ResNet G/D at gf=df=64, z 128, dof 16, B 64, 5 critic + 1 generator
    updates, hutchinson sigma, EMA 0.9999, bf16, fused MMD on): timed
    macro-steps with the kernels' launch counters read around them, a
-   torch.profiler trace of two more, one float32 macro-step with TF32
+   torch.profiler trace of two more (device time by kernel, and each csrc
+   kernel's device us per launch), one float32 macro-step with TF32
    off, and 256 samples from the EMA generator;
 4. the data-parallel tmmd step at full width, as the per-rank program of
    a one-rank NCCL group on cuda:0 (the flagship networks without SN,
@@ -83,6 +93,8 @@ KINDS = [("gaussian", (1.0, 2.0, 4.0, 8.0, 16.0), 0.0),
          ("distance", (), 0.0),
          ("dot", (), 0.0)]
 SHAPES = [(64, 64, 16), (100, 60, 16), (4096, 4096, 16), (8192, 8192, 128)]
+# shapes ragged against the stats kernels' 16/32/64 tiles and 64-feature chunks
+RAGGED_STATS_SHAPES = [(1, 7, 3), (33, 17, 5), (130, 70, 130)]
 SLICE_SHAPE = (64, 64, 16)
 TIMED_STEPS = 10          # bf16 macro-steps timed after one warm-up
 
@@ -127,7 +139,9 @@ def bound_ms(kind: str, m: int, n: int, d: int, exclude_diag: bool,
     which of the two sets it.  Bytes: inputs read once, output written
     once.  Ops: the pairs this call computes (the diagonal excluded where
     masked).  ``kind``: fwd / bwd (pair_sum, pair_sum_grad_a), stats_fwd /
-    stats_bwd (pair_stats, pair_stats_grad_a)."""
+    stats_bwd (pair_stats, pair_stats_grad_a: rows / da only), stats2_fwd /
+    stats2_bwd (pair_block_stats, pair_block_stats_grad: rows and columns,
+    da and db from one sweep)."""
     pairs = m * n - (min(m, n) if exclude_diag else 0)
     k_ops, g_ops = mixture_ops(kernel, params, add_dot)
     in_bytes = 4 * (m + n) * d
@@ -140,6 +154,14 @@ def bound_ms(kind: str, m: int, n: int, d: int, exclude_diag: bool,
     elif kind == "stats_fwd":
         ops = pairs * (2 * d + 4 + k_ops + 2)            # + k^2 and the row sum
         out_bytes = 4 * m + 4
+    elif kind == "stats2_fwd":
+        ops = pairs * (2 * d + 4 + k_ops + 3)            # + k^2, row and column sums
+        out_bytes = 4 * (m + n) + 4
+    elif kind == "stats2_bwd":
+        # as stats_bwd, plus the column sum and T'^T a; both outputs
+        ops = pairs * (2 * d + 4 + k_ops + g_ops + 5 + 2 + 4 * d) + 3 * (m + n) * d
+        in_bytes += 4 * (m + n) + 4
+        out_bytes = 4 * (m + n) * d
     else:
         # k and g both; coeff = u + v + 2ck, coeff*g, coeff*(g - add_dot/2);
         # the row sum and T'@b
@@ -244,6 +266,77 @@ def check_kernels(results: dict) -> dict:
 # phase 2b: the pair-stats kernels against their plain versions
 
 
+def _stats_errs(mk, a, other, u, v, c, kernel, kp, excl, ad) -> dict:
+    """Errors of the stats wrappers against their plain versions, and
+    whether a second launch on the same inputs repeats the first bit for
+    bit."""
+    import torch
+    rows, cols, sq = mk.pair_block_stats(a, other, kernel, kp, excl, ad)
+    p_rows, p_cols, p_sq = mk.pair_block_stats_plain(a, other, kernel, kp, excl, ad)
+    da, db = mk.pair_block_stats_grad(a, other, u, v, c, kernel, kp, excl, ad)
+    p_da, p_db = mk.pair_block_stats_grad_plain(a, other, u, v, c, kernel, kp, excl, ad)
+    rows1, sq1 = mk.pair_stats(a, other, kernel, kp, excl, ad)
+    da1 = mk.pair_stats_grad_a(a, other, u, v, c, kernel, kp, excl, ad)
+    again = mk.pair_block_stats(a, other, kernel, kp, excl, ad) + \
+        mk.pair_block_stats_grad(a, other, u, v, c, kernel, kp, excl, ad)
+    out = {}
+    for name, got, want in (("rows", rows, p_rows), ("cols", cols, p_cols),
+                            ("rows_only", rows1, p_rows), ("da", da, p_da),
+                            ("db", db, p_db), ("da_only", da1, p_da)):
+        out[f"{name}_max_abs_err"] = float((got - want).abs().max())
+        out[f"{name}_scale"] = float(want.abs().max())
+    for name, got in (("sum_sq", sq), ("sum_sq_only", sq1)):
+        out[f"{name}_abs_err"] = abs(float(got) - float(p_sq))
+    out["sum_sq"] = float(p_sq)
+    out["repeat_identical"] = all(torch.equal(x, y) for x, y in
+                                  zip((rows, cols, sq, da, db), again))
+    return out
+
+
+def _stats_failures(e: dict, where: str) -> list:
+    """The checks of one ``_stats_errs`` result.  A row or column sum adds
+    terms that may cancel (the dot kernel's row i is <a_i, sum_j b_j>), so
+    vectors of sums are held at VALUE_RTOL of their largest entry; da and
+    db at RAW_GRAD_SCALE_TOL of theirs; sum_sq at VALUE_RTOL / VALUE_ATOL."""
+    bad = []
+    for name in ("rows", "cols", "rows_only"):
+        err, scale = e[f"{name}_max_abs_err"], e[f"{name}_scale"]
+        if not err <= VALUE_ATOL + VALUE_RTOL * scale:
+            bad.append(f"{name} {where}: max err {err} at scale {scale}")
+    for name in ("sum_sq", "sum_sq_only"):
+        if not e[f"{name}_abs_err"] <= VALUE_ATOL + VALUE_RTOL * abs(e["sum_sq"]):
+            bad.append(f"{name} {where}: err {e[f'{name}_abs_err']} at {e['sum_sq']}")
+    for name in ("da", "db", "da_only"):
+        err, scale = e[f"{name}_max_abs_err"], e[f"{name}_scale"]
+        if not err <= RAW_GRAD_SCALE_TOL * scale + 1e-6:
+            bad.append(f"{name} {where}: max err {err} at scale {scale}")
+    if not e["repeat_identical"]:
+        bad.append(f"{where}: a second launch on the same inputs differs")
+    return bad
+
+
+def _stats_timings(mk, a, u, v, c, kernel, kp, ad, iters: int) -> dict:
+    """CUDA-event ms of the four stats wrappers and their plain versions on
+    the self block of ``a`` (no diagonal), with their bounds."""
+    m, d = a.shape
+    out = {}
+    for kind, fn, plain in (
+            ("stats_fwd", lambda: mk.pair_stats(a, a, kernel, kp, True, ad),
+             lambda: mk.pair_stats_plain(a, a, kernel, kp, True, ad)),
+            ("stats_bwd", lambda: mk.pair_stats_grad_a(a, a, u, v, c, kernel, kp, True, ad),
+             lambda: mk.pair_stats_grad_a_plain(a, a, u, v, c, kernel, kp, True, ad)),
+            ("stats2_fwd", lambda: mk.pair_block_stats(a, a, kernel, kp, True, ad),
+             lambda: mk.pair_block_stats_plain(a, a, kernel, kp, True, ad)),
+            ("stats2_bwd",
+             lambda: mk.pair_block_stats_grad(a, a, u, v, c, kernel, kp, True, ad),
+             lambda: mk.pair_block_stats_grad_plain(a, a, u, v, c, kernel, kp, True, ad))):
+        out[f"{kind}_ms"] = time_ms(fn, iters)
+        out[f"{kind}_plain_ms"] = time_ms(plain, max(iters // 4, 5))
+        out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"] = bound_ms(
+            kind, m, m, d, True, kernel, kp, ad)
+    return out
+
+
 def check_stats_kernels(results: dict) -> dict:
     import torch
     from smmdax_torch.cuda import mmd_kernel as mk
@@ -253,7 +346,7 @@ def check_stats_kernels(results: dict) -> dict:
     failures, rows, oracle = [], [], []
     slice_err, slice_times = {}, {}
     c = torch.tensor(STATS_C, device="cuda")
-    for (m, n, d) in SHAPES:
+    for (m, n, d) in SHAPES + RAGGED_STATS_SHAPES:
         a = torch.randn(m, d, device="cuda", generator=gen) * 0.7
         b = torch.randn(n, d, device="cuda", generator=gen) * 0.7 + 0.3
         iters = 200 if m * n <= 10**4 else 20
@@ -264,43 +357,17 @@ def check_stats_kernels(results: dict) -> dict:
                 nb = other.shape[0]
                 u = torch.randn(m, device="cuda", generator=gen)
                 v = torch.randn(nb, device="cuda", generator=gen)
-                rk, sk = mk.pair_stats(a, other, kernel, kp, excl, ad)
-                rp, sp = mk.pair_stats_plain(a, other, kernel, kp, excl, ad)
-                rerr = float((rk - rp).abs().max())
-                serr = abs(float(sk) - float(sp))
-                where = f"{label} {(m, nb, d)} excl={excl}"
-                # a row sum adds n terms that may cancel (the dot kernel's is
-                # <a_i, sum_j b_j>): held at VALUE_RTOL of the largest row
-                rscale = float(rp.abs().max())
-                if not rerr <= VALUE_ATOL + VALUE_RTOL * rscale:
-                    failures.append(f"pair_stats rows {where}: max err {rerr} at "
-                                    f"scale {rscale}")
-                if not serr <= VALUE_ATOL + VALUE_RTOL * abs(float(sp)):
-                    failures.append(f"pair_stats sum_sq {where}: {float(sk)} vs {float(sp)}")
-                dk = mk.pair_stats_grad_a(a, other, u, v, c, kernel, kp, excl, ad)
-                dp = mk.pair_stats_grad_a_plain(a, other, u, v, c, kernel, kp, excl, ad)
-                derr, dscale = float((dk - dp).abs().max()), float(dp.abs().max())
-                if not derr <= RAW_GRAD_SCALE_TOL * dscale + 1e-6:
-                    failures.append(f"pair_stats_grad_a {where}: max err {derr} at "
-                                    f"scale {dscale}")
-                row = dict(kernel=label, m=m, n=nb, d=d, self_block=excl,
-                           rows_max_abs_err=rerr, rows_scale=rscale, sum_sq_abs_err=serr,
-                           da_max_abs_err=derr, da_scale=dscale)
-                if excl and label == "rq":
-                    for kind, fn, plain in (
-                            ("stats_fwd", lambda: mk.pair_stats(a, other, kernel, kp, excl, ad),
-                             lambda: mk.pair_stats_plain(a, other, kernel, kp, excl, ad)),
-                            ("stats_bwd",
-                             lambda: mk.pair_stats_grad_a(a, other, u, v, c, kernel, kp, excl, ad),
-                             lambda: mk.pair_stats_grad_a_plain(a, other, u, v, c, kernel, kp,
-                                                                excl, ad))):
-                        row[f"{kind}_ms"] = time_ms(fn, iters)
-                        row[f"{kind}_plain_ms"] = time_ms(plain, max(iters // 4, 5))
-                        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms(
-                            kind, m, m, d, True, kernel, kp, ad)
+                errs = _stats_errs(mk, a, other, u, v, c, kernel, kp, excl, ad)
+                failures += _stats_failures(errs, f"{label} {(m, nb, d)} excl={excl}")
+                row = dict(kernel=label, m=m, n=nb, d=d, self_block=excl, **errs)
+                if excl and label == "rq" and (m, n, d) in SHAPES:
+                    row.update(_stats_timings(mk, a, u, v, c, kernel, kp, ad, iters))
                     if (m, n, d) == SLICE_SHAPE:
                         slice_times = row
-                        slice_err = dict(fwd=max(rerr, serr), bwd=derr)
+                        slice_err = dict(
+                            fwd=max(errs["rows_max_abs_err"], errs["cols_max_abs_err"],
+                                    errs["sum_sq_abs_err"]),
+                            bwd=max(errs["da_max_abs_err"], errs["db_max_abs_err"]))
                 rows.append(row)
             # make_pair_stats gradients against the dense oracle
             for excl in (False, True):
@@ -340,10 +407,13 @@ def check_stats_kernels(results: dict) -> dict:
     results["stats_oracle_grads"] = oracle
     for r in rows:
         if "stats_fwd_ms" in r:
-            log("  rq self-block m={m} d={d}: stats fwd {stats_fwd_ms:.4f} ms (plain "
-                "{stats_fwd_plain_ms:.4f}, bound {stats_fwd_bound_ms:.6f}); stats bwd "
+            log("  rq self-block m={m} d={d}: rows-only fwd {stats_fwd_ms:.4f} ms (plain "
+                "{stats_fwd_plain_ms:.4f}, bound {stats_fwd_bound_ms:.6f}); da-only bwd "
                 "{stats_bwd_ms:.4f} ms (plain {stats_bwd_plain_ms:.4f}, bound "
-                "{stats_bwd_bound_ms:.6f})".format(**r))
+                "{stats_bwd_bound_ms:.6f}); one-sweep fwd {stats2_fwd_ms:.4f} ms (plain "
+                "{stats2_fwd_plain_ms:.4f}, bound {stats2_fwd_bound_ms:.6f}); one-sweep "
+                "da+db {stats2_bwd_ms:.4f} ms (plain {stats2_bwd_plain_ms:.4f}, bound "
+                "{stats2_bwd_bound_ms:.6f})".format(**r))
     if failures:
         fail(f"{len(failures)} pair-stats checks failed: " + "; ".join(failures[:20]))
     return dict(times=slice_times, err=slice_err)
@@ -372,9 +442,47 @@ def flagship_config(dtype: str):
                   compute_dtype=dtype, use_pallas="on")
 
 
+# The CUDA kernels (csrc/*.cu) behind each of the four launch counters:
+# every counted launch runs each of its parts once.  Names of this tree's
+# kernels and of the earlier ones (pair_stats_rows + sum_partials,
+# pair_stats_grad_rows), so that a profile of an earlier tree reads alike.
+KERNEL_PARTS = {
+    "pair_sum": ("pair_sum_tiles", "sum_partials"),
+    "pair_sum_grad_a": ("pair_sum_grad_rows",),
+    "pair_stats": ("pair_stats_tiles", "pair_stats_sum", "pair_stats_rows", "sum_partials"),
+    "pair_stats_grad_a": ("pair_stats_grad_tiles", "pair_stats_grad_sum",
+                          "pair_stats_grad_rows"),
+}
+
+
+def csrc_device_us(events, launches: dict) -> dict:
+    """{counter: device us per counted launch}: the profiler's mean device
+    time per call of each part, summed over the parts present.  A part
+    shared by two counters (sum_partials) counts at its mean."""
+    import re
+    per_part = {}
+    for part in {p for parts in KERNEL_PARTS.values() for p in parts}:
+        hits = [e for e in events if re.search(rf"\b{part}\b", e.key)]
+        calls = sum(e.count for e in hits)
+        if calls:
+            per_part[part] = (calls, sum(e.self_device_time_total for e in hits) / calls)
+    out = {}
+    for name, parts in KERNEL_PARTS.items():
+        present = [p for p in parts if p in per_part]
+        if launches.get(name) and present:
+            # the earlier pair_stats forward ran sum_partials too; the new
+            # one runs pair_stats_sum instead
+            if name == "pair_stats" and "pair_stats_rows" not in per_part:
+                present = [p for p in present if p != "sum_partials"]
+            out[name] = sum(per_part[p][1] for p in present)
+    out["parts"] = {p: dict(calls=c, us_per_call=t) for p, (c, t) in per_part.items()}
+    return out
+
+
 def profile_steps(step, state, batches, results: dict) -> None:
     """torch.profiler over two macro-steps: device busy share of the step
-    time and the kernels that take the device time."""
+    time, the kernels that take the device time, and each csrc kernel's
+    device us per launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -404,6 +512,13 @@ def profile_steps(step, state, batches, results: dict) -> None:
         f"{sum(e.count for e in events) / 2:.0f} kernels per macro-step")
     for r in rows:
         log(f"  {r['device_ms']:8.3f} ms {r['calls'] / 2:6.0f}x  {r['name']}")
+    launches = {k: v for k, v in results["launches"].items() if k != "macro_steps"}
+    dev = csrc_device_us(events, launches)
+    results["profile"]["csrc_device_us_per_launch"] = dev
+    log("  csrc kernels, device us per launch: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in dev.items() if k != "parts")
+        + "; by part: " + ", ".join(f"{p} {d['calls'] / 2:g}x {d['us_per_call']:.2f} us"
+                                   for p, d in sorted(dev["parts"].items())))
 
 
 def run_slice(cfg, steps: int, label: str, results: dict, required,
@@ -653,20 +768,52 @@ def check_two_ranks(cfg, state, real, fake, one_rank, results: dict,
         f"gradients within {err:.3g} abs (largest entry {scale:.3g})")
 
 
+def profile_only(results: dict) -> int:
+    """The timed and profiled bf16 macro-steps of phases 3 and 4 alone."""
+    import torch
+    from smmdax_torch.parallel import init_data_axis
+    run_slice(flagship_config("bfloat16"), TIMED_STEPS, "flagship bf16", results,
+              ("pair_sum", "pair_sum_grad_a"), profile=True)
+    axis = init_data_axis("cuda:0")
+    try:
+        run_slice(tmmd_ring_config("bfloat16"), TIMED_STEPS, "tmmd ring bf16", results,
+                  ("pair_sum", "pair_sum_grad_a", "pair_stats", "pair_stats_grad_a"),
+                  profile=True, axis=axis)
+    finally:
+        axis.close()
+    torch.cuda.synchronize()
+    print(json.dumps({label: dict(launches=results[label]["launches"],
+                                  ms_per_macro_step=results[label]["ms_per_macro_step"],
+                                  device_ms_per_macro_step=results[label]["profile"][
+                                      "device_busy_ms_per_macro_step"],
+                                  csrc_device_us_per_launch=results[label]["profile"][
+                                      "csrc_device_us_per_launch"])
+                      for label in ("flagship bf16", "tmmd ring bf16")}), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="write all results as JSON here")
+    parser.add_argument("--tree", default=HERE,
+                        help="import smmdax_torch from this checkout (default: beside "
+                             "this script), e.g. an earlier commit unpacked by git archive")
+    parser.add_argument("--only", choices=("profile",), default=None,
+                        help="profile: build, then only the timed and profiled bf16 "
+                             "steps of phases 3 and 4; prints the launches and device "
+                             "us per launch of each csrc kernel, and no ok line")
     args = parser.parse_args(argv)
+    tree = os.path.abspath(args.tree)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "smmdax_torch")):
-        print("chip_smoke: the smmdax_torch package is not beside this script",
-              file=sys.stderr)
+    if not os.path.isdir(os.path.join(tree, "smmdax_torch")):
+        print(f"chip_smoke: no smmdax_torch package in {tree}", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, tree)
     from smmdax_torch.cuda import build
     from smmdax_torch.parallel import init_data_axis
     from smmdax_torch.train import sample
@@ -682,9 +829,12 @@ def main(argv=None) -> int:
     _, nvcc_log, secs = build.build()
     log(f"build: {secs:.1f} s for {', '.join(build.sources())}")
     for line in nvcc_log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if line.startswith("==") or any(w in line for w in
+                                        ("entry function", "registers", "spill")):
             log(f"  {line.strip()}")
     results["build_s"] = secs
+    if args.only == "profile":
+        return profile_only(results)
 
     # phase 2, 2b
     t0 = time.perf_counter()
@@ -733,26 +883,40 @@ def main(argv=None) -> int:
         log("2-rank ring: skipped, 1 card")
     log(f"tmmd ring phase: {time.perf_counter() - t0:.1f} s")
 
+    dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
+    dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
+
+    def device_us(name):
+        return {"flagship": dev3.get(name), "tmmd_ring": dev4.get(name)}
+
     t, ts = slice_k["times"], slice_s["times"]
     kernels = [
         dict(name="pair_sum_fwd", route="cuda", source="smmdax_torch/csrc/pair_sum.cu",
              replaces="smmdax/pallas/mmd_kernel.py:141", launches=flagship["pair_sum"],
              max_abs_err=slice_k["err"]["fwd"], ms=t["fwd_ms"], plain_ms=t["fwd_plain_ms"],
-             bound_ms=t["fwd_bound_ms"], bound_by=t["fwd_bound_by"], library_ms=None),
+             bound_ms=t["fwd_bound_ms"], bound_by=t["fwd_bound_by"], library_ms=None,
+             device_us_per_launch=device_us("pair_sum")),
         dict(name="pair_sum_grad_a", route="cuda", source="smmdax_torch/csrc/pair_sum.cu",
              replaces="smmdax/pallas/mmd_kernel.py:186", launches=flagship["pair_sum_grad_a"],
              max_abs_err=slice_k["err"]["bwd"], ms=t["bwd_ms"], plain_ms=t["bwd_plain_ms"],
-             bound_ms=t["bwd_bound_ms"], bound_by=t["bwd_bound_by"], library_ms=None),
+             bound_ms=t["bwd_bound_ms"], bound_by=t["bwd_bound_by"], library_ms=None,
+             device_us_per_launch=device_us("pair_sum_grad_a")),
         dict(name="pair_stats", route="cuda", source="smmdax_torch/csrc/pair_stats.cu",
              replaces="smmdax/pallas/mmd_kernel.py:323", launches=ring["pair_stats"],
              max_abs_err=slice_s["err"]["fwd"], ms=ts["stats_fwd_ms"],
              plain_ms=ts["stats_fwd_plain_ms"], bound_ms=ts["stats_fwd_bound_ms"],
-             bound_by=ts["stats_fwd_bound_by"], library_ms=None),
+             bound_by=ts["stats_fwd_bound_by"], library_ms=None,
+             device_us_per_launch=device_us("pair_stats"),
+             one_sweep=dict(ms=ts["stats2_fwd_ms"], plain_ms=ts["stats2_fwd_plain_ms"],
+                            bound_ms=ts["stats2_fwd_bound_ms"])),
         dict(name="pair_stats_grad_a", route="cuda", source="smmdax_torch/csrc/pair_stats.cu",
              replaces="smmdax/pallas/mmd_kernel.py:387", launches=ring["pair_stats_grad_a"],
              max_abs_err=slice_s["err"]["bwd"], ms=ts["stats_bwd_ms"],
              plain_ms=ts["stats_bwd_plain_ms"], bound_ms=ts["stats_bwd_bound_ms"],
-             bound_by=ts["stats_bwd_bound_by"], library_ms=None),
+             bound_by=ts["stats_bwd_bound_by"], library_ms=None,
+             device_us_per_launch=device_us("pair_stats_grad_a"),
+             one_sweep=dict(ms=ts["stats2_bwd_ms"], plain_ms=ts["stats2_bwd_plain_ms"],
+                            bound_ms=ts["stats2_bwd_bound_ms"])),
     ]
     card = card_line()
     results.update(kernels=kernels, card=card)

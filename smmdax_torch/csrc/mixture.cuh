@@ -1,7 +1,9 @@
 // Shared by the pair-sum and pair-stats kernels: the kernel mixture
-// passed through the C interface, its value k(d2) and derivative
-// g = dk/d(d2), the shared-memory staging of feature chunks, and the
-// fixed-order sum of per-block partials.
+// passed through the C interface and its validation.  The pair-sum
+// kernels use its value k(d2) and derivative g = dk/d(d2) (mixture_k,
+// mixture_g), the shared-memory staging of feature chunks and the
+// fixed-order sum of per-block partials; the pair-stats kernels take k
+// and g from one pass (mixture_kg) and stage and reduce on their own.
 //
 // k is a Gaussian or rational-quadratic mixture (rq optionally plus
 // add_dot * <a_i, b_j>), or the energy-distance kernel -sqrt(d2 + eps),
@@ -69,6 +71,36 @@ __device__ __forceinline__ float mixture_g(float d2, const Mix& mx) {
     g = -0.5f / sqrtf(d2 + kDistEps);
   }
   return g;
+}
+
+// k and g from one pass over the mixture terms: each term pays one expf
+// (and, for rq, one log1pf), and g reuses the term's k_t.  rq:
+// g_t = -k_t / 2 / (1 + d2 / 2 alpha), gaussian: g_t = -gamma k_t,
+// distance: g = 1 / (2 k).  With kWantG false the g work is dead code.
+template <bool kWantG>
+__device__ __forceinline__ void mixture_kg(float d2, float dot, const Mix& mx,
+                                           float& k, float& g) {
+  k = 0.f;
+  g = 0.f;
+  if (mx.kind == kGaussian) {
+    for (int t = 0; t < mx.n; ++t) {
+      const float kt = expf(d2 * (-mx.p[t]));
+      k += kt;
+      if (kWantG) g -= mx.p[t] * kt;
+    }
+  } else if (mx.kind == kRQ) {
+    for (int t = 0; t < mx.n; ++t) {
+      const float a = mx.p[t];
+      const float x = d2 / (2.f * a);
+      const float kt = expf(-a * log1pf(x));
+      k += kt;
+      if (kWantG) g -= 0.5f * kt * __frcp_rn(1.f + x);
+    }
+    if (mx.add_dot != 0.f) k += mx.add_dot * dot;
+  } else {
+    k = -sqrtf(d2 + kDistEps);
+    if (kWantG) g = 0.5f / k;
+  }
 }
 
 // Stage rows [r0, r0 + rows) x columns [k0, k0 + kChunk) of x (row-major,

@@ -9,6 +9,8 @@ from smmdax_torch.cuda.mmd_kernel import (  # noqa: F401
     make_pair_stats,
     make_pair_sum,
     make_row_stats,
+    pair_block_stats,
+    pair_block_stats_grad,
     pair_stats,
     pair_stats_grad_a,
     pair_sum,

@@ -11,14 +11,18 @@ Four hand-written CUDA kernels:
   ``_bwd_kernel``/``_pair_sum_grad_a`` (mmd_kernel.py:186-242):
   sum_j g_ij (a_i - b_j) [+ (add_dot/2) b_j], one block per row block of
   a, looping over the column tiles of b.
-* ``pair_stats`` (``csrc/pair_stats.cu``) replaces
+* the stats forward (``csrc/pair_stats.cu``) replaces
   ``_stats_kernel``/``_pair_stats_fwd`` (mmd_kernel.py:323-384): the row
-  sums (m,) and sum of squares of the masked Gram block, one block per row
-  block writing its row sums once.
-* ``pair_stats_grad_a`` (``csrc/pair_stats.cu``) replaces
+  sums (m,), optionally the column sums (n,), and the sum of squares of the
+  masked Gram block in one sweep over 2D tiles (``pair_block_stats``;
+  ``pair_stats`` is the rows-only call).  Its launches count on
+  ``pair_stats.launches``.
+* the stats gradient (``csrc/pair_stats.cu``) replaces
   ``_stats_bwd_kernel``/``_pair_stats_grad_a`` (mmd_kernel.py:387-452):
-  dS/da of S = sum_i u_i row_i + sum_j v_j col_j + c sum k^2, the design of
-  ``pair_sum_grad_a`` with coeff = u_i + v_j + 2 c k_ij.
+  dS/da and dS/db of S = sum_i u_i row_i + sum_j v_j col_j + c sum k^2 in
+  one sweep, coeff = u_i + v_j + 2 c k_ij (``pair_block_stats_grad``;
+  ``pair_stats_grad_a`` is the da-only call).  Its launches count on
+  ``pair_stats_grad_a.launches``.
 
 Bound on the card: launch latency at the flagship's 64 x 16 features;
 float32 operations (d FMAs plus the mixture's exp/log1p per pair) at
@@ -26,7 +30,8 @@ large m, n.  See the sources for the design.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and uses
 its plain PyTorch version (``<wrapper>_plain``) only for a tensor on the
-CPU.  ``<wrapper>.launches`` counts kernel launches.  Inputs are cast to
+CPU.  ``.launches`` of the four wrappers of ``kernel_launch_counters``
+count kernel launches, one counter per TPU kernel.  Inputs are cast to
 float32, as ``_tile_pad`` does; no padding is needed, the kernels mask
 ragged edges themselves.
 
@@ -144,28 +149,54 @@ def pair_sum_grad_a_plain(a: Tensor, b: Tensor, kernel: str, params,
     return torch.sum(grow, dim=1, keepdim=True) * a - gmat @ b
 
 
+def pair_block_stats_plain(a: Tensor, b: Tensor, kernel: str, params,
+                           exclude_diag: bool, add_dot: float = 0.0,
+                           want_cols: bool = True):
+    """Plain version of the one-sweep stats forward ``pair_block_stats``."""
+    d2, dot = _dists(a, b)
+    k = _mixture_k(d2, kernel, params, add_dot, dot)
+    k = torch.where(_mask(a.shape[0], b.shape[0], exclude_diag, a.device), k, 0.0)
+    return torch.sum(k, dim=1), (torch.sum(k, dim=0) if want_cols else None), torch.sum(k * k)
+
+
+def pair_block_stats_grad_plain(a: Tensor, b: Tensor, u, v, c_sq: Tensor,
+                                kernel: str, params, exclude_diag: bool,
+                                add_dot: float = 0.0, need_a: bool = True,
+                                need_b: bool = True, scale: float = 1.0):
+    """Plain version of the one-sweep stats gradient
+    ``pair_block_stats_grad``: (da or None, db or None); u or v None reads
+    as zeros."""
+    d2, dot = _dists(a, b)
+    k = _mixture_k(d2, kernel, params, add_dot, dot)
+    g = _mixture_g(d2, kernel, params)
+    mask = _mask(a.shape[0], b.shape[0], exclude_diag, a.device)
+    coeff = 2.0 * c_sq * k
+    if u is not None:
+        coeff = coeff + u[:, None]
+    if v is not None:
+        coeff = coeff + v[None, :]
+    t = torch.where(mask, coeff * g, 0.0)
+    tmat = t if not add_dot else torch.where(mask, coeff * (g - 0.5 * add_dot), 0.0)
+    da = scale * (torch.sum(t, dim=1, keepdim=True) * a - tmat @ b) if need_a else None
+    db = scale * (torch.sum(t, dim=0)[:, None] * b - tmat.T @ a) if need_b else None
+    return da, db
+
+
 def pair_stats_plain(a: Tensor, b: Tensor, kernel: str, params,
                      exclude_diag: bool, add_dot: float = 0.0
                      ) -> Tuple[Tensor, Tensor]:
     """Plain version of the ``pair_stats`` kernel."""
-    d2, dot = _dists(a, b)
-    k = _mixture_k(d2, kernel, params, add_dot, dot)
-    k = torch.where(_mask(a.shape[0], b.shape[0], exclude_diag, a.device), k, 0.0)
-    return torch.sum(k, dim=1), torch.sum(k * k)
+    rows, _, sq = pair_block_stats_plain(a, b, kernel, params, exclude_diag,
+                                         add_dot, want_cols=False)
+    return rows, sq
 
 
 def pair_stats_grad_a_plain(a: Tensor, b: Tensor, u: Tensor, v: Tensor,
                             c_sq: Tensor, kernel: str, params,
                             exclude_diag: bool, add_dot: float = 0.0) -> Tensor:
     """Plain version of the ``pair_stats_grad_a`` kernel."""
-    d2, dot = _dists(a, b)
-    k = _mixture_k(d2, kernel, params, add_dot, dot)
-    g = _mixture_g(d2, kernel, params)
-    mask = _mask(a.shape[0], b.shape[0], exclude_diag, a.device)
-    coeff = u[:, None] + v[None, :] + 2.0 * c_sq * k
-    t = torch.where(mask, coeff * g, 0.0)
-    tmat = t if not add_dot else torch.where(mask, coeff * (g - 0.5 * add_dot), 0.0)
-    return torch.sum(t, dim=1, keepdim=True) * a - tmat @ b
+    return pair_block_stats_grad_plain(a, b, u, v, c_sq, kernel, params,
+                                       exclude_diag, add_dot, need_b=False)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +222,12 @@ def _prepare(a: Tensor, b: Tensor, kernel: str, params,
 
 
 def _mix(kernel: str, params, add_dot: float) -> _Mix:
+    """The mixture struct, built once per (kernel, params, add_dot)."""
+    return _mix_cached(kernel, tuple(float(p) for p in params), float(add_dot))
+
+
+@functools.cache
+def _mix_cached(kernel: str, params: Tuple[float, ...], add_dot: float) -> _Mix:
     if kernel == "gaussian":
         coeffs = [1.0 / (2.0 * float(s) ** 2) for s in params]
     elif kernel == "rq":
@@ -203,16 +240,18 @@ def _mix(kernel: str, params, add_dot: float) -> _Mix:
     return mix
 
 
-def _prepare_coeffs(a: Tensor, b: Tensor, u: Tensor, v: Tensor,
-                    c_sq: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """u (m,), v (n,) and the scalar c_sq as float32 on a's device."""
-    if u.shape != (a.shape[0],) or v.shape != (b.shape[0],) or c_sq.numel() != 1:
-        raise ValueError(f"coefficients u {tuple(u.shape)}, v {tuple(v.shape)}, "
-                         f"c_sq {tuple(c_sq.shape)} for a {tuple(a.shape)}, "
-                         f"b {tuple(b.shape)}")
-    if not u.device == v.device == c_sq.device == a.device:
-        raise ValueError("coefficients on another device than the features")
-    return (u.float().contiguous(), v.float().contiguous(),
+def _prepare_coeffs(a: Tensor, b: Tensor, u, v, c_sq: Tensor):
+    """u (m,) or None, v (n,) or None and the scalar c_sq as float32 on
+    a's device."""
+    for x, rows, what in ((u, a.shape[0], "u"), (v, b.shape[0], "v")):
+        if x is not None and (x.shape != (rows,) or x.device != a.device):
+            raise ValueError(f"coefficient {what} {tuple(x.shape)} on {x.device} for "
+                             f"a {tuple(a.shape)}, b {tuple(b.shape)} on {a.device}")
+    if c_sq.numel() != 1 or c_sq.device != a.device:
+        raise ValueError(f"c_sq {tuple(c_sq.shape)} on {c_sq.device} for features "
+                         f"on {a.device}")
+    return (None if u is None else u.float().contiguous(),
+            None if v is None else v.float().contiguous(),
             c_sq.float().reshape(()).contiguous())
 
 
@@ -233,12 +272,16 @@ def _pair_sum_lib() -> ctypes.CDLL:
 def _pair_stats_lib() -> ctypes.CDLL:
     lib = build.library("pair_stats.cu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.smmdax_pair_stats_partials.argtypes = [ci]
-    lib.smmdax_pair_stats_partials.restype = ci
-    lib.smmdax_pair_stats_fwd.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, ci, ci, _Mix, vp]
+    ll, cf = ctypes.c_longlong, ctypes.c_float
+    lib.smmdax_pair_stats_fwd_scratch.argtypes = [ci, ci, ci]
+    lib.smmdax_pair_stats_fwd_scratch.restype = ll
+    lib.smmdax_pair_stats_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ci, _Mix, vp]
     lib.smmdax_pair_stats_fwd.restype = ci
-    lib.smmdax_pair_stats_grad_a.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, _Mix, vp]
-    lib.smmdax_pair_stats_grad_a.restype = ci
+    lib.smmdax_pair_stats_grad_scratch.argtypes = [ci, ci, ci, ci, ci]
+    lib.smmdax_pair_stats_grad_scratch.restype = ll
+    lib.smmdax_pair_stats_grad.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ci,
+                                           cf, _Mix, vp]
+    lib.smmdax_pair_stats_grad.restype = ci
     return lib
 
 
@@ -293,27 +336,93 @@ def pair_sum_grad_a(a: Tensor, b: Tensor, kernel: str, params,
 pair_sum_grad_a.launches = 0
 
 
+def _stats_fwd(a: Tensor, b: Tensor, kernel: str, params, exclude_diag: bool,
+               add_dot: float, want_cols: bool):
+    """One launch of the stats forward kernel: (rows, cols or None,
+    sum_sq), outputs and scratch in one allocation."""
+    lib = _pair_stats_lib()
+    (m, d), n = a.shape, b.shape[0]
+    nc = n if want_cols else 0
+    scratch = lib.smmdax_pair_stats_fwd_scratch(m, n, int(want_cols))
+    buf = torch.empty(m + nc + 1 + scratch, dtype=torch.float32, device=a.device)
+    ptr = buf.data_ptr()
+    with torch.cuda.device(a.device):
+        err = lib.smmdax_pair_stats_fwd(
+            a.data_ptr(), b.data_ptr(), ptr, ptr + 4 * m if want_cols else None,
+            ptr + 4 * (m + nc), ptr + 4 * (m + nc + 1), scratch, m, n, d,
+            int(exclude_diag), _mix(kernel, params, add_dot), _stream(a))
+    build.check(lib, err, "pair_stats")
+    pair_stats.launches += 1
+    return buf[:m], (buf[m:m + n] if want_cols else None), buf[m + nc]
+
+
+def _stats_grad(a: Tensor, b: Tensor, u, v, c_sq: Tensor, kernel: str, params,
+                exclude_diag: bool, add_dot: float, need_a: bool, need_b: bool,
+                scale: float):
+    """One launch of the stats gradient kernel: (da or None, db or None)."""
+    lib = _pair_stats_lib()
+    (m, d), n = a.shape, b.shape[0]
+    md, nd = (m * d if need_a else 0), (n * d if need_b else 0)
+    out = torch.empty(md + nd, dtype=torch.float32, device=a.device)
+    scratch = lib.smmdax_pair_stats_grad_scratch(m, n, d, int(need_a), int(need_b))
+    part = torch.empty(scratch, dtype=torch.float32, device=a.device)
+    ptr = out.data_ptr()
+    with torch.cuda.device(a.device):
+        err = lib.smmdax_pair_stats_grad(
+            a.data_ptr(), b.data_ptr(), None if u is None else u.data_ptr(),
+            None if v is None else v.data_ptr(), c_sq.data_ptr(),
+            ptr if need_a else None, ptr + 4 * md if need_b else None,
+            part.data_ptr(), scratch, m, n, d, int(exclude_diag), float(scale),
+            _mix(kernel, params, add_dot), _stream(a))
+    build.check(lib, err, "pair_stats_grad_a")
+    pair_stats_grad_a.launches += 1
+    return (out[:md].view(m, d) if need_a else None,
+            out[md:].view(n, d) if need_b else None)
+
+
+def pair_block_stats(a: Tensor, b: Tensor, kernel: str, params,
+                     exclude_diag: bool, add_dot: float = 0.0,
+                     want_cols: bool = True):
+    """(rows (m,), cols (n,) or None, sum_sq ()) of the masked Gram block
+    k(d2(a_i, b_j)) in one sweep, float32."""
+    a, b = _prepare(a, b, kernel, params, add_dot)
+    if a.device.type == "cpu":
+        return pair_block_stats_plain(a, b, kernel, params, exclude_diag, add_dot,
+                                      want_cols)
+    return _stats_fwd(a, b, kernel, params, exclude_diag, add_dot, want_cols)
+
+
+def pair_block_stats_grad(a: Tensor, b: Tensor, u, v, c_sq: Tensor, kernel: str,
+                          params, exclude_diag: bool, add_dot: float = 0.0,
+                          need_a: bool = True, need_b: bool = True,
+                          scale: float = 1.0):
+    """(d/da, d/db) of S = sum_i u_i rows_i + sum_j v_j cols_j
+    + c_sq * sum_sq, times ``scale`` (the pair factor 2 of d(d2)/da is
+    left to the caller), in one sweep; each is None unless asked for.  u
+    or v None reads as zeros; ``c_sq`` is a one-element tensor on a's
+    device (read there, never on the host)."""
+    if not (need_a or need_b):
+        raise ValueError("pair_block_stats_grad needs need_a or need_b")
+    a, b = _prepare(a, b, kernel, params, add_dot)
+    u, v, c_sq = _prepare_coeffs(a, b, u, v, c_sq)
+    if a.device.type == "cpu":
+        return pair_block_stats_grad_plain(a, b, u, v, c_sq, kernel, params,
+                                           exclude_diag, add_dot, need_a, need_b,
+                                           scale)
+    return _stats_grad(a, b, u, v, c_sq, kernel, params, exclude_diag, add_dot,
+                       need_a, need_b, scale)
+
+
 def pair_stats(a: Tensor, b: Tensor, kernel: str, params, exclude_diag: bool,
                add_dot: float = 0.0) -> Tuple[Tensor, Tensor]:
     """(rows, sum_sq): the row sums (m,) and the sum of squared entries of
-    the masked Gram block k(d2(a_i, b_j)), float32."""
+    the masked Gram block k(d2(a_i, b_j)), float32 (the stats forward
+    kernel without its column sums)."""
     a, b = _prepare(a, b, kernel, params, add_dot)
     if a.device.type == "cpu":
         return pair_stats_plain(a, b, kernel, params, exclude_diag, add_dot)
-    lib = _pair_stats_lib()
-    (m, d), n = a.shape, b.shape[0]
-    num = lib.smmdax_pair_stats_partials(m)
-    partials = torch.empty(num, dtype=torch.float32, device=a.device)
-    rows = torch.empty(m, dtype=torch.float32, device=a.device)
-    sum_sq = torch.empty((), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = lib.smmdax_pair_stats_fwd(
-            a.data_ptr(), b.data_ptr(), rows.data_ptr(), partials.data_ptr(), num,
-            sum_sq.data_ptr(), m, n, d, int(exclude_diag),
-            _mix(kernel, params, add_dot), _stream(a))
-    build.check(lib, err, "pair_stats")
-    pair_stats.launches += 1
-    return rows, sum_sq
+    rows, _, sq = _stats_fwd(a, b, kernel, params, exclude_diag, add_dot, False)
+    return rows, sq
 
 
 pair_stats.launches = 0
@@ -323,24 +432,16 @@ def pair_stats_grad_a(a: Tensor, b: Tensor, u: Tensor, v: Tensor, c_sq: Tensor,
                       kernel: str, params, exclude_diag: bool,
                       add_dot: float = 0.0) -> Tensor:
     """d/da of S = sum_i u_i rows_i + sum_j v_j cols_j + c_sq * sum_sq
-    without the pair factor 2, shape of a.  ``c_sq`` is a one-element
-    tensor on a's device (read there, never on the host)."""
+    without the pair factor 2, shape of a (the stats gradient kernel
+    without db).  ``c_sq`` is a one-element tensor on a's device (read
+    there, never on the host)."""
     a, b = _prepare(a, b, kernel, params, add_dot)
     u, v, c_sq = _prepare_coeffs(a, b, u, v, c_sq)
     if a.device.type == "cpu":
         return pair_stats_grad_a_plain(a, b, u, v, c_sq, kernel, params,
                                        exclude_diag, add_dot)
-    lib = _pair_stats_lib()
-    (m, d), n = a.shape, b.shape[0]
-    da = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        err = lib.smmdax_pair_stats_grad_a(
-            a.data_ptr(), b.data_ptr(), u.data_ptr(), v.data_ptr(), c_sq.data_ptr(),
-            da.data_ptr(), m, n, d, int(exclude_diag),
-            _mix(kernel, params, add_dot), _stream(a))
-    build.check(lib, err, "pair_stats_grad_a")
-    pair_stats_grad_a.launches += 1
-    return da
+    return _stats_grad(a, b, u, v, c_sq, kernel, params, exclude_diag, add_dot,
+                       True, False, 1.0)[0]
 
 
 pair_stats_grad_a.launches = 0
@@ -437,10 +538,9 @@ def make_pair_sum(kernel: str, params: Sequence[float], exclude_diag: bool,
 
 class _RowStats(torch.autograd.Function):
     """(rows (m,), sum_sq) of the masked Gram block, first-order
-    differentiable (mmd_kernel.py:455-497).  The backward runs the stats
-    gradient kernel twice, factor 2 from d(d2)/da: for a with (u, 0), and
-    for b as the swapped block, whose own rows carry no cotangent and
-    whose columns carry u."""
+    differentiable (mmd_kernel.py:455-497).  The backward is one launch of
+    the stats gradient kernel with (u, 0, c) for whichever of a and b needs
+    a gradient, scale 2 from d(d2)/da."""
 
     @staticmethod
     def forward(ctx, a, b, kernel, params, exclude_diag, add_dot):
@@ -451,24 +551,43 @@ class _RowStats(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, u, c_sq):
-        a, b = ctx.saved_tensors
-        kernel, params, excl, add_dot = ctx.kernel
-        zn = torch.zeros(b.shape[0], dtype=torch.float32, device=b.device)
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = (2.0 * pair_stats_grad_a(a, b, u, zn, c_sq, kernel, params, excl,
-                                          add_dot)).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            db = (2.0 * pair_stats_grad_a(b, a, zn, u, c_sq, kernel, params, excl,
-                                          add_dot)).to(b.dtype)
-        return da, db, None, None, None, None
+        return _stats_backward(ctx, u, None, c_sq)
+
+
+class _PairStats(torch.autograd.Function):
+    """(rows (m,), cols (n,), sum_sq) of the masked Gram block from one
+    sweep, first-order differentiable; the backward is one launch of the
+    stats gradient kernel with (u, v, c)."""
+
+    @staticmethod
+    def forward(ctx, a, b, kernel, params, exclude_diag, add_dot):
+        ctx.save_for_backward(a, b)
+        ctx.kernel = (kernel, params, exclude_diag, add_dot)
+        return pair_block_stats(a, b, kernel, params, exclude_diag, add_dot)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, u, v, c_sq):
+        return _stats_backward(ctx, u, v, c_sq)
+
+
+def _stats_backward(ctx, u, v, c_sq):
+    a, b = ctx.saved_tensors
+    kernel, params, excl, add_dot = ctx.kernel
+    need_a, need_b = ctx.needs_input_grad[:2]
+    da = db = None
+    if need_a or need_b:
+        da, db = pair_block_stats_grad(a, b, u, v, c_sq, kernel, params, excl, add_dot,
+                                       need_a=need_a, need_b=need_b, scale=2.0)
+    return (None if da is None else da.to(a.dtype),
+            None if db is None else db.to(b.dtype), None, None, None, None)
 
 
 def make_row_stats(kernel: str, params: Sequence[float], exclude_diag: bool,
                    add_dot: float = 0.0):
     """Differentiable fused block statistics
     ``row_stats(a, b) -> (row_sums (m,), sum_sq ())`` of the masked
-    mixture Gram block.  Column sums are the row sums of the swapped call."""
+    mixture Gram block (no column sums)."""
     kernel, params, add_dot = canon_kernel(kernel, params, add_dot)
 
     def row_stats(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
@@ -479,16 +598,12 @@ def make_row_stats(kernel: str, params: Sequence[float], exclude_diag: bool,
 
 def make_pair_stats(kernel: str, params: Sequence[float], exclude_diag: bool,
                     add_dot: float = 0.0):
-    """``stats(a, b) -> (row_sums, col_sums, sum_sq)`` of a masked Gram
-    block: two row-stats sweeps (the columns are the rows of the swapped
-    block).  The ring estimator calls ``make_row_stats`` directly and
-    skips the column sweep where it needs none."""
-    rs = make_row_stats(kernel, params, exclude_diag, add_dot=add_dot)
+    """Differentiable ``stats(a, b) -> (row_sums, col_sums, sum_sq)`` of a
+    masked Gram block, all three from one sweep of the stats kernel."""
+    kernel, params, add_dot = canon_kernel(kernel, params, add_dot)
 
     def stats(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-        rows, sq = rs(a, b)
-        cols, _ = rs(b, a)
-        return rows, cols, sq
+        return _PairStats.apply(a, b, kernel, params, exclude_diag, add_dot)
 
     return stats
 

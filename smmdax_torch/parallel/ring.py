@@ -25,8 +25,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from smmdax_torch.cuda.mmd_kernel import (kernel_diag, make_pair_sum,
-                                          make_row_stats)
+from smmdax_torch.cuda.mmd_kernel import (kernel_diag, make_pair_stats,
+                                          make_pair_sum, make_row_stats)
 from smmdax_torch.kernels import kernel_cross
 from smmdax_torch.kernels.mmd import (MMDSums, VarStats,
                                       mmd2_and_variance_from_stats,
@@ -142,16 +142,18 @@ def ring_var_stats(x_loc: Tensor, y_loc: Tensor, axis: DataAxis,
     if use_pallas and kernel in RING_KERNELS:
         # fused block statistics: row sums and sum of squares without the
         # (b, b) block in device memory; the masked diagonal replaces the
-        # subtraction.  Column sums (xy block only) are the row sums of
-        # the swapped call.
+        # subtraction.  The xy block takes its column sums from the same
+        # sweep.
         kp = rbf_sigmas if kernel == "gaussian" else rq_alphas
         rs_own = make_row_stats(kernel, kp, exclude_diag=True, add_dot=add_dot)
         rs_off = make_row_stats(kernel, kp, exclude_diag=False, add_dot=add_dot)
+        ps_off = make_pair_stats(kernel, kp, exclude_diag=False, add_dot=add_dot)
 
         def block_stats(a, c, own, want_cols=False):
+            if want_cols:
+                return ps_off(a, c)
             rows, sq = (rs_own if own else rs_off)(a, c)
-            cols = rs_off(c, a)[0] if want_cols else None
-            return rows, cols, sq
+            return rows, None, sq
     else:
         def block_stats(a, c, own, want_cols=False):
             k = kernel_cross(kernel, a, c, rbf_sigmas=rbf_sigmas,
