@@ -15,8 +15,14 @@ Phases, each fatal on failure:
 2. hold both pair-sum kernels to their plain PyTorch versions on the card
    (gaussian, rq, rq + add_dot, distance, dot; self blocks without the
    diagonal and cross blocks; at 64x16, ragged 100x60x16, 4096x16 and
-   8192x128), and the ``fused_mmd2`` gradients to the dense oracle's; time
-   kernels and plain versions with CUDA events;
+   8192x128, and at shapes ragged against the 16/32/64 tiles and
+   64-feature chunks): the forward, the da-only gradient and the one-sweep
+   gradient (da only, db only, both; c = 0.7); a second launch on the same
+   inputs must repeat the first bit for bit; the ``fused_mmd2`` gradients
+   to the dense oracle's; time kernels (the gradient da only and da + db)
+   and plain versions with CUDA events, and ``fused_mmd2`` forward +
+   backward against the dense ``mmd2(kernel_matrices(...))`` at 64 to 4096
+   rows per side (rq, d 16);
 2b. the same for both pair-stats kernels (non-zero u, v and c): rows,
    columns and sum of squares of the one-sweep forward, da and db of the
    one-sweep gradient, and the single-side ``pair_stats`` /
@@ -96,6 +102,7 @@ SHAPES = [(64, 64, 16), (100, 60, 16), (4096, 4096, 16), (8192, 8192, 128)]
 # shapes ragged against the stats kernels' 16/32/64 tiles and 64-feature chunks
 RAGGED_STATS_SHAPES = [(1, 7, 3), (33, 17, 5), (130, 70, 130)]
 SLICE_SHAPE = (64, 64, 16)
+DENSE_VS_FUSED_ROWS = (64, 256, 1024, 4096)    # rows per side, rq, d 16
 TIMED_STEPS = 10          # bf16 macro-steps timed after one warm-up
 
 
@@ -138,8 +145,9 @@ def bound_ms(kind: str, m: int, n: int, d: int, exclude_diag: bool,
     """Least time on the card, max(bytes / HBM rate, ops / FP32 rate), and
     which of the two sets it.  Bytes: inputs read once, output written
     once.  Ops: the pairs this call computes (the diagonal excluded where
-    masked).  ``kind``: fwd / bwd (pair_sum, pair_sum_grad_a), stats_fwd /
-    stats_bwd (pair_stats, pair_stats_grad_a: rows / da only), stats2_fwd /
+    masked).  ``kind``: fwd / bwd / bwd2 (pair_sum, pair_sum_grad_a: da
+    only, pair_sum_grad: da and db from one sweep), stats_fwd / stats_bwd
+    (pair_stats, pair_stats_grad_a: rows / da only), stats2_fwd /
     stats2_bwd (pair_block_stats, pair_block_stats_grad: rows and columns,
     da and db from one sweep)."""
     pairs = m * n - (min(m, n) if exclude_diag else 0)
@@ -151,6 +159,11 @@ def bound_ms(kind: str, m: int, n: int, d: int, exclude_diag: bool,
     elif kind == "bwd":
         ops = pairs * (2 * d + 4 + g_ops + 2 * d + 2) + 3 * m * d   # + G@b, rowsum
         out_bytes = 4 * m * d
+    elif kind == "bwd2":
+        # as bwd, plus the column sum and G'^T a; both outputs, and c
+        ops = pairs * (2 * d + 4 + g_ops + 4 * d + 3) + 3 * (m + n) * d
+        in_bytes += 4
+        out_bytes = 4 * (m + n) * d
     elif kind == "stats_fwd":
         ops = pairs * (2 * d + 4 + k_ops + 2)            # + k^2 and the row sum
         out_bytes = 4 * m + 4
@@ -184,53 +197,108 @@ def card_line() -> str:
 # phase 2: kernels against their plain versions
 
 
+def _sum_errs(mk, a, other, c, kernel, kp, excl, ad) -> dict:
+    """Errors of the pair-sum wrappers against their plain versions: the
+    forward, the da-only gradient (c = 1) and the one-sweep gradient (da
+    only, db only, both; scale 2, cotangent c), and whether a second launch
+    on the same inputs repeats the first bit for bit."""
+    import torch
+    s = mk.pair_sum(a, other, kernel, kp, excl, ad)
+    p = float(mk.pair_sum_plain(a, other, kernel, kp, excl, ad))
+    ga = mk.pair_sum_grad_a(a, other, kernel, kp, excl, ad)
+    p_ga = mk.pair_sum_grad_a_plain(a, other, kernel, kp, excl, ad)
+    p_da, p_db = mk.pair_sum_grad_plain(a, other, c, kernel, kp, excl, ad, scale=2.0)
+    out = dict(fwd_abs_err=abs(float(s) - p), sum=p,
+               repeat_identical=torch.equal(s, mk.pair_sum(a, other, kernel, kp, excl, ad))
+               and torch.equal(ga, mk.pair_sum_grad_a(a, other, kernel, kp, excl, ad)))
+    checks = [("da_unit", ga, p_ga)]
+    for need_a, need_b, tag in ((True, True, "both"), (True, False, "a"), (False, True, "b")):
+        got = mk.pair_sum_grad(a, other, c, kernel, kp, excl, ad, need_a=need_a,
+                               need_b=need_b, scale=2.0)
+        again = mk.pair_sum_grad(a, other, c, kernel, kp, excl, ad, need_a=need_a,
+                                 need_b=need_b, scale=2.0)
+        out["repeat_identical"] &= all(
+            (g is None and g2 is None) or torch.equal(g, g2) for g, g2 in zip(got, again))
+        if need_a:
+            checks.append((f"da_{tag}", got[0], p_da))
+        if need_b:
+            checks.append((f"db_{tag}", got[1], p_db))
+    for name, got, want in checks:
+        out[f"{name}_max_abs_err"] = float((got - want).abs().max())
+        out[f"{name}_scale"] = float(want.abs().max())
+    return out
+
+
+def _sum_failures(e: dict, where: str) -> list:
+    """The checks of one ``_sum_errs`` result: S at VALUE_RTOL /
+    VALUE_ATOL, every gradient at RAW_GRAD_SCALE_TOL of its largest
+    entry, repeated launches identical."""
+    bad = []
+    if not e["fwd_abs_err"] <= VALUE_ATOL + VALUE_RTOL * abs(e["sum"]):
+        bad.append(f"pair_sum {where}: err {e['fwd_abs_err']} at {e['sum']}")
+    for key in [k for k in e if k.endswith("_max_abs_err")]:
+        name = key[:-len("_max_abs_err")]
+        err, scale = e[key], e[f"{name}_scale"]
+        if not err <= RAW_GRAD_SCALE_TOL * scale + 1e-6:
+            bad.append(f"pair-sum gradient {name} {where}: max err {err} at scale {scale}")
+    if not e["repeat_identical"]:
+        bad.append(f"pair-sum kernels {where}: a second launch on the same inputs differs")
+    return bad
+
+
+def _sum_timings(mk, a, c, kernel, kp, ad, iters: int) -> dict:
+    """CUDA-event ms of the forward, the da-only gradient and the one-sweep
+    da + db gradient, and their plain versions, on the self block of ``a``
+    (no diagonal), with their bounds."""
+    m, d = a.shape
+    out = {}
+    for kind, fn, plain in (
+            ("fwd", lambda: mk.pair_sum(a, a, kernel, kp, True, ad),
+             lambda: mk.pair_sum_plain(a, a, kernel, kp, True, ad)),
+            ("bwd", lambda: mk.pair_sum_grad_a(a, a, kernel, kp, True, ad),
+             lambda: mk.pair_sum_grad_a_plain(a, a, kernel, kp, True, ad)),
+            ("bwd2", lambda: mk.pair_sum_grad(a, a, c, kernel, kp, True, ad, scale=2.0),
+             lambda: mk.pair_sum_grad_plain(a, a, c, kernel, kp, True, ad, scale=2.0))):
+        out[f"{kind}_ms"] = time_ms(fn, iters)
+        out[f"{kind}_plain_ms"] = time_ms(plain, max(iters // 4, 5))
+        out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"] = bound_ms(
+            kind, m, m, d, True, kernel, kp, ad)
+    return out
+
+
 def check_kernels(results: dict) -> dict:
     import torch
     from smmdax_torch.cuda import mmd_kernel as mk
     from smmdax_torch.kernels import kernel_matrices, mmd2
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
+    failures, rows = [], []
     slice_err = {"fwd": 0.0, "bwd": 0.0}
     slice_times = {}
-    for (m, n, d) in SHAPES:
+    c = torch.tensor(STATS_C, device="cuda")
+    for (m, n, d) in SHAPES + RAGGED_STATS_SHAPES:
         a = torch.randn(m, d, device="cuda", generator=gen) * 0.7
         b = torch.randn(n, d, device="cuda", generator=gen) * 0.7 + 0.3
         iters = 200 if m * n <= 10**4 else 20
         fused_err = fused_scale = 0.0
         for label, params, add_dot in KINDS:
-            kernel, params, add_dot = mk.canon_kernel(label.split("+")[0], params, add_dot)
+            kernel, kp, ad = mk.canon_kernel(label.split("+")[0], params, add_dot)
             for other, excl in ((a, True), (b, False)):
-                k = float(mk.pair_sum(a, other, kernel, params, excl, add_dot))
-                p = float(mk.pair_sum_plain(a, other, kernel, params, excl, add_dot))
-                if not abs(k - p) <= VALUE_ATOL + VALUE_RTOL * abs(p):
-                    fail(f"pair_sum {label} {(m, n, d)} excl={excl}: {k} vs plain {p}")
-                gk = mk.pair_sum_grad_a(a, other, kernel, params, excl, add_dot)
-                gp = mk.pair_sum_grad_a_plain(a, other, kernel, params, excl, add_dot)
-                gerr = float((gk - gp).abs().max())
-                gscale = float(gp.abs().max())
-                if not gerr <= RAW_GRAD_SCALE_TOL * gscale + 1e-6:
-                    fail(f"pair_sum_grad_a {label} {(m, n, d)} excl={excl}: "
-                         f"max err {gerr} at scale {gscale}")
-                row = dict(kernel=label, m=m, n=n if not excl else m, d=d, self_block=excl,
-                           fwd_abs_err=abs(k - p), bwd_max_abs_err=gerr, bwd_scale=gscale)
-                if excl and label == "rq":
+                nb = other.shape[0]
+                errs = _sum_errs(mk, a, other, c, kernel, kp, excl, ad)
+                failures += _sum_failures(errs, f"{label} {(m, nb, d)} excl={excl}")
+                row = dict(kernel=label, m=m, n=nb, d=d, self_block=excl, **errs)
+                if excl and label == "rq" and (m, n, d) in SHAPES:
                     # time the flagship's kernel kind on every shape
-                    for kind, fn, plain in (
-                            ("fwd", lambda: mk.pair_sum(a, other, kernel, params, excl, add_dot),
-                             lambda: mk.pair_sum_plain(a, other, kernel, params, excl, add_dot)),
-                            ("bwd", lambda: mk.pair_sum_grad_a(a, other, kernel, params, excl, add_dot),
-                             lambda: mk.pair_sum_grad_a_plain(a, other, kernel, params, excl, add_dot))):
-                        row[f"{kind}_ms"] = time_ms(fn, iters)
-                        row[f"{kind}_plain_ms"] = time_ms(plain, max(iters // 4, 5))
-                        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms(
-                            kind, m, m, d, True, kernel, params, add_dot)
+                    row.update(_sum_timings(mk, a, c, kernel, kp, ad, iters))
                     if (m, n, d) == SLICE_SHAPE:
                         slice_times = row
-                if (m, n, d) == SLICE_SHAPE and label == "rq" and excl:
-                    slice_err["fwd"] = abs(k - p)
-                    slice_err["bwd"] = gerr
+                        slice_err = dict(fwd=errs["fwd_abs_err"],
+                                         bwd=max(v for k, v in errs.items()
+                                                 if k.endswith("_max_abs_err")))
                 rows.append(row)
+            if (m, n, d) not in SHAPES:
+                continue
             # fused_mmd2 gradients through the autograd.Function vs the dense oracle
             xs = a.clone().requires_grad_()
             ys = b.clone().requires_grad_()
@@ -244,22 +312,60 @@ def check_kernels(results: dict) -> dict:
             for got, want, which in ((xs.grad, xo.grad, "x"), (ys.grad, yo.grad, "y")):
                 err = float((got - want).abs().max())
                 if not torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL):
-                    fail(f"fused_mmd2 d/d{which} {label} {(m, n, d)}: max err {err}")
+                    failures.append(f"fused_mmd2 d/d{which} {label} {(m, n, d)}: max err {err}")
                 fused_err = max(fused_err, err)
                 fused_scale = max(fused_scale, float(want.abs().max()))
             del xs, ys, xo, yo
-        log(f"kernels vs plain at {(m, n, d)}: ok; fused_mmd2 gradients within "
-            f"{fused_err:.3g} abs of the dense oracle (largest entry {fused_scale:.3g})")
-        results.setdefault("fused_grad", []).append(
-            dict(m=m, n=n, d=d, max_abs_err=fused_err, scale=fused_scale))
+        if (m, n, d) in SHAPES:
+            log(f"pair-sum kernels vs plain at {(m, n, d)}: checked; fused_mmd2 gradients "
+                f"within {fused_err:.3g} abs of the dense oracle (largest entry "
+                f"{fused_scale:.3g})")
+            results.setdefault("fused_grad", []).append(
+                dict(m=m, n=n, d=d, max_abs_err=fused_err, scale=fused_scale))
+        else:
+            log(f"pair-sum kernels vs plain at {(m, n, d)}: checked")
     torch.cuda.synchronize()
     results["kernel_rows"] = rows
     for r in rows:
         if "fwd_ms" in r:
             log("  rq self-block m={m} d={d}: fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, "
-                "bound {fwd_bound_ms:.6f}); bwd {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}, "
-                "bound {bwd_bound_ms:.6f})".format(**r))
+                "bound {fwd_bound_ms:.6f}); da-only bwd {bwd_ms:.4f} ms (plain "
+                "{bwd_plain_ms:.4f}, bound {bwd_bound_ms:.6f}); one-sweep da+db "
+                "{bwd2_ms:.4f} ms (plain {bwd2_plain_ms:.4f}, bound {bwd2_bound_ms:.6f})"
+                .format(**r))
+    if failures:
+        fail(f"{len(failures)} pair-sum checks failed: " + "; ".join(failures[:20]))
     return dict(times=slice_times, err=slice_err)
+
+
+def time_dense_vs_fused(results: dict) -> None:
+    """CUDA-event ms of one ``fused_mmd2`` forward + backward (the kernels)
+    and one dense ``mmd2(kernel_matrices(...))`` forward + backward, rq, d
+    16, at 64 to 4096 rows per side: the yardstick for the ``auto``
+    dispatch threshold (``cuda/dispatch.py``), not a switch."""
+    import torch
+    from smmdax_torch.cuda import mmd_kernel as mk
+    from smmdax_torch.kernels import kernel_matrices, mmd2
+    params = (0.2, 0.5, 1.0, 2.0, 5.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for rows in DENSE_VS_FUSED_ROWS:
+        x = (torch.randn(rows, 16, device="cuda", generator=gen) * 0.7).requires_grad_()
+        y = (torch.randn(rows, 16, device="cuda", generator=gen) * 0.7 + 0.3).requires_grad_()
+        iters = 50 if rows <= 1024 else 10
+
+        def fused():
+            torch.autograd.grad(mk.fused_mmd2(x, y, "rq", params), (x, y))
+
+        def dense():
+            torch.autograd.grad(mmd2(kernel_matrices("rq", x, y, rq_alphas=params)), (x, y))
+
+        row = dict(rows=rows, d=16, fused_ms=time_ms(fused, iters),
+                   dense_ms=time_ms(dense, iters))
+        out.append(row)
+        log(f"fused_mmd2 vs dense mmd2, fwd+bwd, rq, {rows}x16: fused {row['fused_ms']:.4f} ms, "
+            f"dense {row['dense_ms']:.4f} ms")
+    results["dense_vs_fused"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -444,11 +550,12 @@ def flagship_config(dtype: str):
 
 # The CUDA kernels (csrc/*.cu) behind each of the four launch counters:
 # every counted launch runs each of its parts once.  Names of this tree's
-# kernels and of the earlier ones (pair_stats_rows + sum_partials,
+# kernels and of the earlier ones (pair_sum_tiles + sum_partials,
+# pair_sum_grad_rows, pair_stats_rows + sum_partials,
 # pair_stats_grad_rows), so that a profile of an earlier tree reads alike.
 KERNEL_PARTS = {
-    "pair_sum": ("pair_sum_tiles", "sum_partials"),
-    "pair_sum_grad_a": ("pair_sum_grad_rows",),
+    "pair_sum": ("pair_sum_tiles", "pair_sum_sum", "sum_partials"),
+    "pair_sum_grad_a": ("pair_sum_grad_tiles", "pair_sum_grad_sum", "pair_sum_grad_rows"),
     "pair_stats": ("pair_stats_tiles", "pair_stats_sum", "pair_stats_rows", "sum_partials"),
     "pair_stats_grad_a": ("pair_stats_grad_tiles", "pair_stats_grad_sum",
                           "pair_stats_grad_rows"),
@@ -839,6 +946,7 @@ def main(argv=None) -> int:
     # phase 2, 2b
     t0 = time.perf_counter()
     slice_k = check_kernels(results)
+    time_dense_vs_fused(results)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     slice_s = check_stats_kernels(results)
@@ -900,7 +1008,9 @@ def main(argv=None) -> int:
              replaces="smmdax/pallas/mmd_kernel.py:186", launches=flagship["pair_sum_grad_a"],
              max_abs_err=slice_k["err"]["bwd"], ms=t["bwd_ms"], plain_ms=t["bwd_plain_ms"],
              bound_ms=t["bwd_bound_ms"], bound_by=t["bwd_bound_by"], library_ms=None,
-             device_us_per_launch=device_us("pair_sum_grad_a")),
+             device_us_per_launch=device_us("pair_sum_grad_a"),
+             one_sweep=dict(ms=t["bwd2_ms"], plain_ms=t["bwd2_plain_ms"],
+                            bound_ms=t["bwd2_bound_ms"])),
         dict(name="pair_stats", route="cuda", source="smmdax_torch/csrc/pair_stats.cu",
              replaces="smmdax/pallas/mmd_kernel.py:323", launches=ring["pair_stats"],
              max_abs_err=slice_s["err"]["fwd"], ms=ts["stats_fwd_ms"],

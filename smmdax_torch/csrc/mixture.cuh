@@ -1,9 +1,7 @@
 // Shared by the pair-sum and pair-stats kernels: the kernel mixture
-// passed through the C interface and its validation.  The pair-sum
-// kernels use its value k(d2) and derivative g = dk/d(d2) (mixture_k,
-// mixture_g), the shared-memory staging of feature chunks and the
-// fixed-order sum of per-block partials; the pair-stats kernels take k
-// and g from one pass (mixture_kg) and stage and reduce on their own.
+// passed through the C interface, its value k(d2) and derivative
+// g = dk/d(d2) from one pass over the terms (mixture_kg), and the
+// validation of a call.  The tile engine both use is tiles.cuh.
 //
 // k is a Gaussian or rational-quadratic mixture (rq optionally plus
 // add_dot * <a_i, b_j>), or the energy-distance kernel -sqrt(d2 + eps),
@@ -36,42 +34,7 @@ constexpr int kRQ = 1;
 constexpr int kDistance = 2;
 constexpr float kDistEps = 1e-8f;  // smmdax_torch.kernels.kernels.DIST_EPS
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 32;  // d-chunk staged through shared memory
-
-__device__ __forceinline__ float mixture_k(float d2, float dot, const Mix& mx) {
-  float k = 0.f;
-  if (mx.kind == kGaussian) {
-    for (int t = 0; t < mx.n; ++t) k += expf(d2 * (-mx.p[t]));
-  } else if (mx.kind == kRQ) {
-    for (int t = 0; t < mx.n; ++t) {
-      const float a = mx.p[t];
-      k += expf(-a * log1pf(d2 / (2.f * a)));
-    }
-    if (mx.add_dot != 0.f) k += mx.add_dot * dot;
-  } else {
-    k = -sqrtf(d2 + kDistEps);
-  }
-  return k;
-}
-
-__device__ __forceinline__ float mixture_g(float d2, const Mix& mx) {
-  float g = 0.f;
-  if (mx.kind == kGaussian) {
-    for (int t = 0; t < mx.n; ++t) {
-      const float gamma = mx.p[t];
-      g += -gamma * expf(-gamma * d2);
-    }
-  } else if (mx.kind == kRQ) {
-    for (int t = 0; t < mx.n; ++t) {
-      const float a = mx.p[t];
-      g += -0.5f * expf(-(a + 1.f) * log1pf(d2 / (2.f * a)));
-    }
-  } else {
-    g = -0.5f / sqrtf(d2 + kDistEps);
-  }
-  return g;
-}
+constexpr int kThreads = 256;  // threads per block of every kernel
 
 // k and g from one pass over the mixture terms: each term pays one expf
 // (and, for rq, one log1pf), and g reuses the term's k_t.  rq:
@@ -103,36 +66,7 @@ __device__ __forceinline__ void mixture_kg(float d2, float dot, const Mix& mx,
   }
 }
 
-// Stage rows [r0, r0 + rows) x columns [k0, k0 + kChunk) of x (row-major,
-// width d) into s, zero outside the matrix.
-template <int Rows>
-__device__ __forceinline__ void stage(float (*s)[kChunk + 1], const float* __restrict__ x,
-                                      int r0, int nrows, int k0, int d) {
-  for (int e = threadIdx.x; e < Rows * kChunk; e += kThreads) {
-    const int r = e / kChunk, k = e % kChunk;
-    const int gr = r0 + r, gk = k0 + k;
-    s[r][k] = (gr < nrows && gk < d) ? x[(size_t)gr * d + gk] : 0.f;
-  }
-}
-
-// One block: sum the per-block partials in a fixed order (deterministic,
-// no atomics).
-__global__ void __launch_bounds__(kThreads)
-sum_partials(const float* __restrict__ partials, int count, float* __restrict__ out) {
-  __shared__ float buf[kThreads];
-  const int t = threadIdx.x;
-  float s = 0.f;
-  for (int e = t; e < count; e += kThreads) s += partials[e];
-  buf[t] = s;
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (t < w) buf[t] += buf[t + w];
-    __syncthreads();
-  }
-  if (t == 0) *out = buf[0];
-}
-
-bool valid(int m, int n, int d, const Mix& mx) {
+inline bool valid(int m, int n, int d, const Mix& mx) {
   return m > 0 && n > 0 && d > 0 && mx.n >= 0 && mx.n <= kMaxParams &&
          mx.kind >= kGaussian && mx.kind <= kDistance;
 }

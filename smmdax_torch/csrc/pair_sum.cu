@@ -1,258 +1,215 @@
-// Fused pairwise-kernel sums for the MMD^2 estimator, and their gradient.
+// Fused pairwise-kernel sums for the MMD^2 estimator, and their gradient,
+// each in one sweep over the pairs.
 //
-//   pair_sum_fwd:    S = sum_{i,j} mask_ij * k(||a_i - b_j||^2)
-//   pair_sum_grad_a: dS/da_i without the pair factor,
-//                    rowsum(G)_i * a_i - ((G - add_dot/2 * mask) @ b)_i,
-//                    G_ij = mask_ij * dk/d(d2)
+//   pair_sum_fwd:  S = sum_ij mask_ij k_ij                  (scalar)
+//   pair_sum_grad: dS/da and dS/db times factor * c, without the factor 2
+//                  of d(d2)/da (the caller's factor holds it):
+//                  da_i = rowsum(T)_i a_i - (T' b)_i        (optional)
+//                  db_j = colsum(T)_j b_j - (T'^T a)_j      (optional)
+//                  T_ij = mask_ij g_ij, T'_ij = mask_ij (g_ij - add_dot/2)
 //
-// k is the mixture of mixture.cuh (shared with pair_stats.cu).  The mask
-// drops the diagonal of a self-block (exclude_diag).  Neither kernel
-// materialises the (m, n) Gram matrix in device memory.
+// with k_ij = k(||a_i - b_j||^2) the mixture of mixture.cuh and
+// g = dk/d(d2).  The mask drops the diagonal of a self block
+// (exclude_diag).  Neither kernel materialises the (m, n) Gram matrix in
+// device memory.
 //
 // Replaces the TPU kernels _fwd_kernel/_pair_sum and
 // _bwd_kernel/_pair_sum_grad_a of smmdax/pallas/mmd_kernel.py.  The TPU
 // grid runs in order on one core, so those kernels carried a scalar
 // (forward) and a row block of da (backward) from one grid step to the
-// next.  Blocks run in no order here, so:
-//   * the forward writes one partial per block to a scratch buffer and a
-//     one-block second pass sums the partials in a fixed order
-//     (deterministic, no atomics);
-//   * the backward gives each block a block of rows of a (and a chunk of
-//     the output columns) and loops over every column tile of b itself;
-//     its da entries are written once and nothing crosses blocks.
+// next, and JAX takes db from a second call on the swapped block.  Blocks
+// run in no order here, and the flagship's 64 x 64 block is 4,032 pairs:
+// one TPU-sized tile would be one block on one of 132 SMs.  So both run on
+// the tile engine of tiles.cuh (shared with pair_stats.cu):
+//   * the forward gives each block one TILE x TILE tile (16, 32 or 64
+//     pairs a side, the largest whose grid fills the card: 16 blocks of
+//     16 x 16 at 64 x 64), with the dot products register-blocked over
+//     64-feature chunks padded to 4 and staged by cp.async.  Each block
+//     writes one partial of S; a one-block pass sums them in index order;
+//   * the gradient is the engine's grad_tiles with coefficient 1: one
+//     sweep gives da and db (both read the same T), with b staged in
+//     shared memory for T' b and T'^T a.  The pass sums the per-group
+//     partials in a fixed order and multiplies by factor * c, where c (an
+//     autograd cotangent) is read on the card: reading it on the host would
+//     synchronise every backward.  A null c reads as 1.
+// Every sum is deterministic and there are no atomics: a repeated launch
+// on the same inputs repeats its result bit for bit.
 //
-// Bound on an H100: at the flagship shape (64 x 16 features) both
-// kernels are bound by launch latency (a few thousand pairs).  At large
-// m, n the work is m*n pairs of d FMAs plus one exp/log1p pair per
-// mixture term: bound by float32 operations, not bytes (inputs are read
-// from L2/shared memory many times, the output is a scalar or (m, d)).
-// The products run on the FP32 pipes in FMA loops over shared-memory
-// tiles; tensor-core (wgmma) tiles are later work.
+// Bound on an H100: at the flagship's 64 x 16 features both are bound by
+// launch latency (4,032 pairs).  At large m, n the work is m*n pairs of
+// d FMAs plus the mixture (one expf and one log1pf per rq term; the
+// gradient takes k and g from that one pass) and, in the gradient, 2d
+// FMAs per side for T' b and T'^T a: bound by float32 operations, on the
+// FP32 pipes (the inputs are read from shared memory many times, the
+// outputs are a scalar or (m, d) and (n, d)).
 //
 // Plain C interface for ctypes; every entry point returns
 // cudaGetLastError() after its launches.
 
-#include "mixture.cuh"
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 64;       // forward: 64 x 64 pairs per block
-constexpr int kGradRows = 32;   // backward: rows of a per block
-constexpr int kGradCols = 64;   // backward: column tile of b
-constexpr int kGradOut = 128;   // backward: output columns of da per block
-
 // ---------------------------------------------------------------------------
-// forward
+// forward: one tile per block, then a fixed-order pass
 
+template <int TILE>
 __global__ void __launch_bounds__(kThreads)
 pair_sum_tiles(const float* __restrict__ a, const float* __restrict__ b,
-               float* __restrict__ partials, int m, int n, int d,
-               int exclude_diag, Mix mx) {
-  __shared__ float as[kTile][kChunk + 1];
-  __shared__ float bs[kTile][kChunk + 1];
-  __shared__ float na[kTile], nb[kTile];
+               float* __restrict__ part, int m, int n, int d, int exclude_diag, int vec,
+               Mix mx) {
+  constexpr int R = TILE / 16;
+  __shared__ __align__(16) float as[TILE * kPitch];
+  __shared__ __align__(16) float bs[TILE * kPitch];
+  __shared__ float na[TILE], nb[TILE];
   __shared__ float warp_sums[kThreads / 32];
 
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;  // this thread: rows ty + 16r, cols tx + 16c
-  const int i0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
+  const int t = threadIdx.x, tx = t % 16, ty = t / 16;  // rows ty + 16r, cols tx + 16c
+  const int i0 = blockIdx.x * TILE, j0 = blockIdx.y * TILE;
 
-  float dot[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dot[r][c] = 0.f;
-  float norm = 0.f;  // threads [0, 64): ||a_row||^2, [64, 128): ||b_row||^2
-
-  for (int k0 = 0; k0 < d; k0 += kChunk) {
-    stage<kTile>(as, a, i0, m, k0, d);
-    stage<kTile>(bs, b, j0, n, k0, d);
-    __syncthreads();
-    if (t < kTile) {
-      for (int k = 0; k < kChunk; ++k) norm = fmaf(as[t][k], as[t][k], norm);
-    } else if (t < 2 * kTile) {
-      for (int k = 0; k < kChunk; ++k) norm = fmaf(bs[t - kTile][k], bs[t - kTile][k], norm);
-    }
-#pragma unroll 8
-    for (int k = 0; k < kChunk; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) av[r] = as[ty + 16 * r][k];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = bs[tx + 16 * c][k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dot[r][c] = fmaf(av[r], bv[c], dot[r][c]);
-    }
-    __syncthreads();
-  }
-  if (t < kTile) na[t] = norm;
-  else if (t < 2 * kTile) nb[t - kTile] = norm;
-  __syncthreads();
+  float dot[R][R];
+  tile_dots<TILE>(as, bs, a, b, i0, j0, m, n, d, vec, dot, na, nb);
 
   float s = 0.f;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < R; ++c) {
       const int li = ty + 16 * r, lj = tx + 16 * c;
       const int i = i0 + li, j = j0 + lj;
       if (i < m && j < n && !(exclude_diag && i == j)) {
         const float d2 = fmaxf(na[li] + nb[lj] - 2.f * dot[r][c], 0.f);
-        s += mixture_k(d2, dot[r][c], mx);
+        float k, g;
+        mixture_kg<false>(d2, dot[r][c], mx, k, g);
+        s += k;
       }
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  if ((t & 31) == 0) warp_sums[t >> 5] = s;
-  __syncthreads();
-  if (t == 0) {
-    float total = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
-  }
+  const float total = block_sum(s, warp_sums);
+  if (t == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = total;
+}
+
+// One block: the partials of S summed in index order.
+__global__ void __launch_bounds__(kThreads)
+pair_sum_sum(const float* __restrict__ part, int count, float* __restrict__ out) {
+  __shared__ float warp_sums[kThreads / 32];
+  float s = 0.f;
+  for (int e = threadIdx.x; e < count; e += kThreads) s += part[e];
+  const float total = block_sum(s, warp_sums);
+  if (threadIdx.x == 0) *out = total;
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// gradient: the engine's rectangle of tiles per block, then a fixed-order pass
 
+// Every pair's coefficient is 1: the factor * c of the pair sum multiplies
+// in the pass.
+struct UnitCoeff {
+  __device__ __forceinline__ float operator()(int, int, float) const { return 1.f; }
+};
+
+template <int TILE>
 __global__ void __launch_bounds__(kThreads)
-pair_sum_grad_rows(const float* __restrict__ a, const float* __restrict__ b,
-                   float* __restrict__ da, int m, int n, int d,
-                   int exclude_diag, Mix mx) {
-  __shared__ float as[kGradRows][kChunk + 1];
-  __shared__ float bs[kGradCols][kChunk + 1];
-  __shared__ float na[kGradRows], nb[kGradCols];
-  __shared__ float gs[kGradRows][kGradCols + 1];  // masked g: the row sums
-  __shared__ float gm[kGradRows][kGradCols + 1];  // masked g - add_dot/2: the G@b operand
+pair_sum_grad_tiles(const float* __restrict__ a, const float* __restrict__ b,
+                    float* __restrict__ da_part, float* __restrict__ db_part, int m, int n,
+                    int d, int row_tiles, int col_tiles, int exclude_diag, int need_a,
+                    int need_b, int vec, Mix mx) {
+  extern __shared__ __align__(16) float smem[];
+  grad_tiles<TILE>(smem, a, b, UnitCoeff{}, da_part, db_part, m, n, d, row_tiles, col_tiles,
+                   exclude_diag, need_a, need_b, vec, mx);
+}
 
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;  // tile phase: rows ty + 16r, cols tx + 16c
-  const int ar = t / 8, al = t % 8;    // accumulation phase: row ar, columns al + 8q
-  const int i0 = blockIdx.x * kGradRows;
-  const int c0 = blockIdx.y * kGradOut;
-  const float half_dot = 0.5f * mx.add_dot;
+// out[e] = factor * c * sum over the groups of part[g][e], first da, then
+// db; c null reads as 1.
+__global__ void __launch_bounds__(kThreads)
+pair_sum_grad_sum(const float* __restrict__ da_part, int da_groups,
+                  const float* __restrict__ db_part, int db_groups, float* __restrict__ da,
+                  float* __restrict__ db, size_t md, size_t nd, const float* __restrict__ c,
+                  float factor) {
+  grad_sum(da_part, da_groups, db_part, db_groups, da, db, md, nd,
+           c ? factor * __ldg(c) : factor);
+}
 
-  float acc[kGradOut / 8];
-#pragma unroll
-  for (int q = 0; q < kGradOut / 8; ++q) acc[q] = 0.f;
-  float rowsum = 0.f;
+template <int TILE>
+cudaError_t launch_fwd(const float* a, const float* b, float* out, float* scratch, int m,
+                       int n, int d, int exclude_diag, int vec, const Mix& mix,
+                       cudaStream_t s) {
+  const int ti = cdiv(m, TILE), tj = cdiv(n, TILE);
+  pair_sum_tiles<TILE><<<dim3(ti, tj), kThreads, 0, s>>>(a, b, scratch, m, n, d, exclude_diag,
+                                                         vec, mix);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  pair_sum_sum<<<1, kThreads, 0, s>>>(scratch, ti * tj, out);
+  return cudaGetLastError();
+}
 
-  for (int j0 = 0; j0 < n; j0 += kGradCols) {
-    float dot[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dot[r][c] = 0.f;
-    float norm = 0.f;  // threads [0, 32): ||a_row||^2, [32, 96): ||b_row||^2
-
-    for (int k0 = 0; k0 < d; k0 += kChunk) {
-      stage<kGradRows>(as, a, i0, m, k0, d);
-      stage<kGradCols>(bs, b, j0, n, k0, d);
-      __syncthreads();
-      if (t < kGradRows) {
-        for (int k = 0; k < kChunk; ++k) norm = fmaf(as[t][k], as[t][k], norm);
-      } else if (t < kGradRows + kGradCols) {
-        const int r = t - kGradRows;
-        for (int k = 0; k < kChunk; ++k) norm = fmaf(bs[r][k], bs[r][k], norm);
-      }
-#pragma unroll 8
-      for (int k = 0; k < kChunk; ++k) {
-        float av[2], bv[4];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) av[r] = as[ty + 16 * r][k];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = bs[tx + 16 * c][k];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) dot[r][c] = fmaf(av[r], bv[c], dot[r][c]);
-      }
-      __syncthreads();
-    }
-    if (t < kGradRows) na[t] = norm;
-    else if (t < kGradRows + kGradCols) nb[t - kGradRows] = norm;
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int li = ty + 16 * r, lj = tx + 16 * c;
-        const int i = i0 + li, j = j0 + lj;
-        float g = 0.f, g_op = 0.f;
-        if (i < m && j < n && !(exclude_diag && i == j)) {
-          const float d2 = fmaxf(na[li] + nb[lj] - 2.f * dot[r][c], 0.f);
-          g = mixture_g(d2, mx);
-          g_op = g - half_dot;
-        }
-        gs[li][lj] = g;
-        gm[li][lj] = g_op;
-      }
-    }
-    __syncthreads();
-
-    for (int jj = al; jj < kGradCols; jj += 8) rowsum += gs[ar][jj];
-    const int jn = min(kGradCols, n - j0);
-    for (int jj = 0; jj < jn; ++jj) {
-      const float w = gm[ar][jj];
-      const float* __restrict__ brow = b + (size_t)(j0 + jj) * d;
-#pragma unroll
-      for (int q = 0; q < kGradOut / 8; ++q) {
-        const int col = c0 + al + 8 * q;
-        if (col < d) acc[q] = fmaf(w, __ldg(brow + col), acc[q]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // the 8 lanes of a row are neighbours in one warp; the butterfly gives
-  // every lane the same (commutative) sums
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) rowsum += __shfl_xor_sync(0xffffffffu, rowsum, off);
-
-  const int i = i0 + ar;
-  if (i < m) {
-#pragma unroll
-    for (int q = 0; q < kGradOut / 8; ++q) {
-      const int col = c0 + al + 8 * q;
-      if (col < d) da[(size_t)i * d + col] = rowsum * a[(size_t)i * d + col] - acc[q];
-    }
-  }
+template <int TILE>
+cudaError_t launch_grad(const float* a, const float* b, const float* c, float* da, float* db,
+                        float* scratch, int m, int n, int d, int exclude_diag, int vec,
+                        float factor, const Mix& mix, cudaStream_t s) {
+  int rg, cg, rt, ct;
+  grad_groups(m, n, TILE, &rg, &cg, &rt, &ct);
+  const size_t md = da ? (size_t)m * d : 0, nd = db ? (size_t)n * d : 0;
+  float* da_part = scratch;
+  float* db_part = scratch + cg * md;
+  const size_t smem = grad_smem_floats<TILE>() * sizeof(float);
+  cudaError_t err = allow_smem(pair_sum_grad_tiles<TILE>, smem);
+  if (err != cudaSuccess) return err;
+  pair_sum_grad_tiles<TILE><<<dim3(rg, cg), kThreads, smem, s>>>(
+      a, b, da_part, db_part, m, n, d, rt, ct, exclude_diag, da != nullptr, db != nullptr, vec,
+      mix);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  pair_sum_grad_sum<<<grad_sum_blocks(md, nd), kThreads, 0, s>>>(da_part, cg, db_part, rg, da,
+                                                                 db, md, nd, c, factor);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of per-block partials (the scratch size) the forward needs.
-int smmdax_pair_sum_partials(int m, int n) {
-  return ((m + kTile - 1) / kTile) * ((n + kTile - 1) / kTile);
+// Floats of scratch the forward needs (one partial per tile).
+long long smmdax_pair_sum_fwd_scratch(int m, int n) {
+  const int tile = tile_for(m, n);
+  return (long long)cdiv(m, tile) * cdiv(n, tile);
 }
 
-int smmdax_pair_sum_fwd(const float* a, const float* b, float* partials,
-                        int num_partials, float* out, int m, int n, int d,
-                        int exclude_diag, Mix mix, void* stream) {
-  if (!valid(m, n, d, mix) || num_partials != smmdax_pair_sum_partials(m, n))
+// S () in one sweep.
+int smmdax_pair_sum_fwd(const float* a, const float* b, float* out, float* scratch,
+                        long long scratch_len, int m, int n, int d, int exclude_diag, Mix mix,
+                        void* stream) {
+  if (!valid(m, n, d, mix) || scratch_len != smmdax_pair_sum_fwd_scratch(m, n))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  pair_sum_tiles<<<grid, kThreads, 0, s>>>(a, b, partials, m, n, d, exclude_diag, mix);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials<<<1, kThreads, 0, s>>>(partials, num_partials, out);
-  return (int)cudaGetLastError();
+  const int vec = d % 4 == 0 && aligned16(a) && aligned16(b);
+  switch (tile_for(m, n)) {
+    case 64: return (int)launch_fwd<64>(a, b, out, scratch, m, n, d, exclude_diag, vec, mix, s);
+    case 32: return (int)launch_fwd<32>(a, b, out, scratch, m, n, d, exclude_diag, vec, mix, s);
+    default: return (int)launch_fwd<16>(a, b, out, scratch, m, n, d, exclude_diag, vec, mix, s);
+  }
 }
 
-int smmdax_pair_sum_grad_a(const float* a, const float* b, float* da, int m,
-                           int n, int d, int exclude_diag, Mix mix, void* stream) {
-  if (!valid(m, n, d, mix)) return (int)cudaErrorInvalidValue;
+// Floats of scratch the gradient needs (per-group partials of da and db).
+long long smmdax_pair_sum_grad_scratch(int m, int n, int d, int need_a, int need_b) {
+  return grad_scratch(m, n, d, need_a, need_b);
+}
+
+// da (m, d) unless null and db (n, d) unless null, times factor * c, in
+// one sweep; c is one float on the card, or null for 1.
+int smmdax_pair_sum_grad(const float* a, const float* b, const float* c, float* da, float* db,
+                         float* scratch, long long scratch_len, int m, int n, int d,
+                         int exclude_diag, float factor, Mix mix, void* stream) {
+  if (!valid(m, n, d, mix) || (da == nullptr && db == nullptr) ||
+      scratch_len != grad_scratch(m, n, d, da != nullptr, db != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((m + kGradRows - 1) / kGradRows, (d + kGradOut - 1) / kGradOut);
-  pair_sum_grad_rows<<<grid, kThreads, 0, s>>>(a, b, da, m, n, d, exclude_diag, mix);
-  return (int)cudaGetLastError();
+  const int vec = d % 4 == 0 && aligned16(a) && aligned16(b);
+  switch (tile_for(m, n)) {
+    case 64: return (int)launch_grad<64>(a, b, c, da, db, scratch, m, n, d, exclude_diag, vec, factor, mix, s);
+    case 32: return (int)launch_grad<32>(a, b, c, da, db, scratch, m, n, d, exclude_diag, vec, factor, mix, s);
+    default: return (int)launch_grad<16>(a, b, c, da, db, scratch, m, n, d, exclude_diag, vec, factor, mix, s);
+  }
 }
 
 const char* smmdax_error_string(int err) {

@@ -14,5 +14,6 @@ from smmdax_torch.cuda.mmd_kernel import (  # noqa: F401
     pair_stats,
     pair_stats_grad_a,
     pair_sum,
+    pair_sum_grad,
     pair_sum_grad_a,
 )

@@ -5,12 +5,14 @@ Four hand-written CUDA kernels:
 
 * ``pair_sum`` (``csrc/pair_sum.cu``) replaces ``_fwd_kernel``/``_pair_sum``
   (mmd_kernel.py:141-179): S(a, b) = sum_ij mask * k(||a_i - b_j||^2)
-  without a Gram matrix in device memory; per-block partials plus a
+  without a Gram matrix in device memory; one partial per 2D tile plus a
   fixed-order second pass.
-* ``pair_sum_grad_a`` (``csrc/pair_sum.cu``) replaces
+* the pair-sum gradient (``csrc/pair_sum.cu``) replaces
   ``_bwd_kernel``/``_pair_sum_grad_a`` (mmd_kernel.py:186-242):
-  sum_j g_ij (a_i - b_j) [+ (add_dot/2) b_j], one block per row block of
-  a, looping over the column tiles of b.
+  sum_j g_ij (a_i - b_j) [+ (add_dot/2) b_j] for a, and the same for b
+  from the same sweep, times scale * c with the cotangent c read on the
+  card (``pair_sum_grad``; ``pair_sum_grad_a`` is the da-only call with
+  c = 1).  Its launches count on ``pair_sum_grad_a.launches``.
 * the stats forward (``csrc/pair_stats.cu``) replaces
   ``_stats_kernel``/``_pair_stats_fwd`` (mmd_kernel.py:323-384): the row
   sums (m,), optionally the column sums (n,), and the sum of squares of the
@@ -24,9 +26,10 @@ Four hand-written CUDA kernels:
   ``pair_stats_grad_a`` is the da-only call).  Its launches count on
   ``pair_stats_grad_a.launches``.
 
-Bound on the card: launch latency at the flagship's 64 x 16 features;
-float32 operations (d FMAs plus the mixture's exp/log1p per pair) at
-large m, n.  See the sources for the design.
+All four run on the tile engine of ``csrc/tiles.cuh``.  Bound on the
+card: launch latency at the flagship's 64 x 16 features; float32
+operations (d FMAs plus the mixture's exp/log1p per pair) at large m, n.
+See the sources for the design.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and uses
 its plain PyTorch version (``<wrapper>_plain``) only for a tensor on the
@@ -138,15 +141,27 @@ def pair_sum_plain(a: Tensor, b: Tensor, kernel: str, params,
     return torch.sum(torch.where(mask, k, 0.0))
 
 
-def pair_sum_grad_a_plain(a: Tensor, b: Tensor, kernel: str, params,
-                          exclude_diag: bool, add_dot: float = 0.0) -> Tensor:
-    """Plain version of the ``pair_sum_grad_a`` kernel."""
+def pair_sum_grad_plain(a: Tensor, b: Tensor, c, kernel: str, params,
+                        exclude_diag: bool, add_dot: float = 0.0, need_a: bool = True,
+                        need_b: bool = True, scale: float = 1.0):
+    """Plain version of the one-sweep pair-sum gradient ``pair_sum_grad``:
+    (da or None, db or None), times scale * c (c None reads as 1)."""
     d2, _ = _dists(a, b)
     g = _mixture_g(d2, kernel, params)
     mask = _mask(a.shape[0], b.shape[0], exclude_diag, a.device)
     grow = torch.where(mask, g, 0.0)
     gmat = grow if not add_dot else torch.where(mask, g - 0.5 * add_dot, 0.0)
-    return torch.sum(grow, dim=1, keepdim=True) * a - gmat @ b
+    f = scale if c is None else scale * c
+    da = f * (torch.sum(grow, dim=1, keepdim=True) * a - gmat @ b) if need_a else None
+    db = f * (torch.sum(grow, dim=0)[:, None] * b - gmat.T @ a) if need_b else None
+    return da, db
+
+
+def pair_sum_grad_a_plain(a: Tensor, b: Tensor, kernel: str, params,
+                          exclude_diag: bool, add_dot: float = 0.0) -> Tensor:
+    """Plain version of the ``pair_sum_grad_a`` kernel call."""
+    return pair_sum_grad_plain(a, b, None, kernel, params, exclude_diag, add_dot,
+                               need_b=False)[0]
 
 
 def pair_block_stats_plain(a: Tensor, b: Tensor, kernel: str, params,
@@ -240,6 +255,14 @@ def _mix_cached(kernel: str, params: Tuple[float, ...], add_dot: float) -> _Mix:
     return mix
 
 
+def _prepare_scalar(a: Tensor, c: Tensor, what: str) -> Tensor:
+    """A one-element coefficient as a float32 scalar on a's device."""
+    if c.numel() != 1 or c.device != a.device:
+        raise ValueError(f"{what} {tuple(c.shape)} on {c.device} for features "
+                         f"on {a.device}")
+    return c.float().reshape(()).contiguous()
+
+
 def _prepare_coeffs(a: Tensor, b: Tensor, u, v, c_sq: Tensor):
     """u (m,) or None, v (n,) or None and the scalar c_sq as float32 on
     a's device."""
@@ -247,24 +270,25 @@ def _prepare_coeffs(a: Tensor, b: Tensor, u, v, c_sq: Tensor):
         if x is not None and (x.shape != (rows,) or x.device != a.device):
             raise ValueError(f"coefficient {what} {tuple(x.shape)} on {x.device} for "
                              f"a {tuple(a.shape)}, b {tuple(b.shape)} on {a.device}")
-    if c_sq.numel() != 1 or c_sq.device != a.device:
-        raise ValueError(f"c_sq {tuple(c_sq.shape)} on {c_sq.device} for features "
-                         f"on {a.device}")
     return (None if u is None else u.float().contiguous(),
             None if v is None else v.float().contiguous(),
-            c_sq.float().reshape(()).contiguous())
+            _prepare_scalar(a, c_sq, "c_sq"))
 
 
 @functools.cache
 def _pair_sum_lib() -> ctypes.CDLL:
     lib = build.library("pair_sum.cu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.smmdax_pair_sum_partials.argtypes = [ci, ci]
-    lib.smmdax_pair_sum_partials.restype = ci
-    lib.smmdax_pair_sum_fwd.argtypes = [vp, vp, vp, ci, vp, ci, ci, ci, ci, _Mix, vp]
+    ll, cf = ctypes.c_longlong, ctypes.c_float
+    lib.smmdax_pair_sum_fwd_scratch.argtypes = [ci, ci]
+    lib.smmdax_pair_sum_fwd_scratch.restype = ll
+    lib.smmdax_pair_sum_fwd.argtypes = [vp, vp, vp, vp, ll, ci, ci, ci, ci, _Mix, vp]
     lib.smmdax_pair_sum_fwd.restype = ci
-    lib.smmdax_pair_sum_grad_a.argtypes = [vp, vp, vp, ci, ci, ci, ci, _Mix, vp]
-    lib.smmdax_pair_sum_grad_a.restype = ci
+    lib.smmdax_pair_sum_grad_scratch.argtypes = [ci, ci, ci, ci, ci]
+    lib.smmdax_pair_sum_grad_scratch.restype = ll
+    lib.smmdax_pair_sum_grad.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ci, cf,
+                                         _Mix, vp]
+    lib.smmdax_pair_sum_grad.restype = ci
     return lib
 
 
@@ -297,40 +321,74 @@ def pair_sum(a: Tensor, b: Tensor, kernel: str, params, exclude_diag: bool,
         return pair_sum_plain(a, b, kernel, params, exclude_diag, add_dot)
     lib = _pair_sum_lib()
     (m, d), n = a.shape, b.shape[0]
-    num = lib.smmdax_pair_sum_partials(m, n)
-    partials = torch.empty(num, dtype=torch.float32, device=a.device)
-    out = torch.empty((), dtype=torch.float32, device=a.device)
+    scratch = lib.smmdax_pair_sum_fwd_scratch(m, n)
+    buf = torch.empty(1 + scratch, dtype=torch.float32, device=a.device)
+    ptr = buf.data_ptr()
     with torch.cuda.device(a.device):
         err = lib.smmdax_pair_sum_fwd(
-            a.data_ptr(), b.data_ptr(), partials.data_ptr(), num,
-            out.data_ptr(), m, n, d, int(exclude_diag),
+            a.data_ptr(), b.data_ptr(), ptr, ptr + 4, scratch, m, n, d, int(exclude_diag),
             _mix(kernel, params, add_dot), _stream(a))
     build.check(lib, err, "pair_sum")
     pair_sum.launches += 1
-    return out
+    return buf[0]
 
 
 pair_sum.launches = 0
 
 
+def _sum_grad(a: Tensor, b: Tensor, c, kernel: str, params, exclude_diag: bool,
+              add_dot: float, need_a: bool, need_b: bool, scale: float):
+    """One launch of the pair-sum gradient kernel: (da or None, db or
+    None); c None reads as 1."""
+    lib = _pair_sum_lib()
+    (m, d), n = a.shape, b.shape[0]
+    md, nd = (m * d if need_a else 0), (n * d if need_b else 0)
+    out = torch.empty(md + nd, dtype=torch.float32, device=a.device)
+    scratch = lib.smmdax_pair_sum_grad_scratch(m, n, d, int(need_a), int(need_b))
+    part = torch.empty(scratch, dtype=torch.float32, device=a.device)
+    ptr = out.data_ptr()
+    with torch.cuda.device(a.device):
+        err = lib.smmdax_pair_sum_grad(
+            a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(),
+            ptr if need_a else None, ptr + 4 * md if need_b else None, part.data_ptr(),
+            scratch, m, n, d, int(exclude_diag), float(scale),
+            _mix(kernel, params, add_dot), _stream(a))
+    build.check(lib, err, "pair_sum_grad")
+    pair_sum_grad_a.launches += 1
+    return (out[:md].view(m, d) if need_a else None,
+            out[md:].view(n, d) if need_b else None)
+
+
+def pair_sum_grad(a: Tensor, b: Tensor, c, kernel: str, params, exclude_diag: bool,
+                  add_dot: float = 0.0, need_a: bool = True, need_b: bool = True,
+                  scale: float = 1.0):
+    """(d/da, d/db) of S = sum_ij mask * k(d2(a_i, b_j)) times
+    ``scale * c``, without the pair factor 2 of d(d2)/da (fold it into
+    ``scale``), in one sweep; each is None unless asked for.  ``c`` is a
+    one-element tensor on a's device (read there, never on the host), or
+    None for 1."""
+    if not (need_a or need_b):
+        raise ValueError("pair_sum_grad needs need_a or need_b")
+    a, b = _prepare(a, b, kernel, params, add_dot)
+    c = None if c is None else _prepare_scalar(a, c, "c")
+    if a.device.type == "cpu":
+        return pair_sum_grad_plain(a, b, c, kernel, params, exclude_diag, add_dot,
+                                   need_a, need_b, scale)
+    return _sum_grad(a, b, c, kernel, params, exclude_diag, add_dot, need_a, need_b,
+                     scale)
+
+
 def pair_sum_grad_a(a: Tensor, b: Tensor, kernel: str, params,
                     exclude_diag: bool, add_dot: float = 0.0) -> Tensor:
     """d/da of sum_ij k(d2(a_i, b_j)) without the cotangent and pair
-    factor: sum_j g_ij (a_i - b_j) [+ (add_dot/2) b_j], shape of a."""
+    factor: sum_j g_ij (a_i - b_j) [+ (add_dot/2) b_j], shape of a (the
+    pair-sum gradient kernel without db, c = 1)."""
     a, b = _prepare(a, b, kernel, params, add_dot)
     if a.device.type == "cpu":
         return pair_sum_grad_a_plain(a, b, kernel, params, exclude_diag,
                                      add_dot)
-    lib = _pair_sum_lib()
-    (m, d), n = a.shape, b.shape[0]
-    da = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        err = lib.smmdax_pair_sum_grad_a(
-            a.data_ptr(), b.data_ptr(), da.data_ptr(), m, n, d,
-            int(exclude_diag), _mix(kernel, params, add_dot), _stream(a))
-    build.check(lib, err, "pair_sum_grad_a")
-    pair_sum_grad_a.launches += 1
-    return da
+    return _sum_grad(a, b, None, kernel, params, exclude_diag, add_dot, True, False,
+                     1.0)[0]
 
 
 pair_sum_grad_a.launches = 0
@@ -475,17 +533,21 @@ class _FusedMMDSums(torch.autograd.Function):
     def backward(ctx, c_xx, c_yy, c_xy):
         x, y = ctx.saved_tensors
         kernel, params, add_dot = ctx.kernel
+        need_x, need_y = ctx.needs_input_grad[:2]
         dx = dy = None
         # sum_xx counts each unordered pair twice and d(d2)/dx = 2(x_i - x_j):
-        # factor 4 on the self-blocks, 2 on the cross block
-        if ctx.needs_input_grad[0]:
-            dx = (4.0 * c_xx) * pair_sum_grad_a(x, x, kernel, params, True, add_dot)
-            dx = dx + (2.0 * c_xy) * pair_sum_grad_a(x, y, kernel, params, False, add_dot)
-            dx = dx.to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dy = (4.0 * c_yy) * pair_sum_grad_a(y, y, kernel, params, True, add_dot)
-            dy = dy + (2.0 * c_xy) * pair_sum_grad_a(y, x, kernel, params, False, add_dot)
-            dy = dy.to(y.dtype)
+        # factor 4 on the self blocks, 2 on the cross block, whose one sweep
+        # gives the cross terms of dx and dy.  The cotangents stay on the card.
+        gx, gy = pair_sum_grad(x, y, c_xy, kernel, params, False, add_dot,
+                               need_a=need_x, need_b=need_y, scale=2.0)
+        if need_x:
+            dx = pair_sum_grad(x, x, c_xx, kernel, params, True, add_dot,
+                               need_b=False, scale=4.0)[0]
+            dx = (dx + gx).to(x.dtype)
+        if need_y:
+            dy = pair_sum_grad(y, y, c_yy, kernel, params, True, add_dot,
+                               need_b=False, scale=4.0)[0]
+            dy = (dy + gy).to(y.dtype)
         return dx, dy, None, None, None
 
 
@@ -502,8 +564,10 @@ def make_fused_mmd_sums(kernel: str, params: Sequence[float],
 
 class _PairSum(torch.autograd.Function):
     """S(a, b) = sum_ij mask * k(d2(a_i, b_j)), first-order differentiable
-    in a and b (mmd_kernel.py:516-545).  When a and b are one tensor the
-    two cotangents add up to the factor-4 gradient of a self block."""
+    in a and b (mmd_kernel.py:516-545).  The backward is one launch of the
+    pair-sum gradient kernel for whichever of a and b needs a gradient,
+    scale 2 from d(d2)/da.  When a and b are one tensor the two gradients
+    add up to the factor-4 gradient of a self block."""
 
     @staticmethod
     def forward(ctx, a, b, kernel, params, exclude_diag, add_dot):
@@ -516,12 +580,11 @@ class _PairSum(torch.autograd.Function):
     def backward(ctx, c):
         a, b = ctx.saved_tensors
         kernel, params, excl, add_dot = ctx.kernel
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = ((2.0 * c) * pair_sum_grad_a(a, b, kernel, params, excl, add_dot)).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            db = ((2.0 * c) * pair_sum_grad_a(b, a, kernel, params, excl, add_dot)).to(b.dtype)
-        return da, db, None, None, None, None
+        da, db = pair_sum_grad(a, b, c, kernel, params, excl, add_dot,
+                               need_a=ctx.needs_input_grad[0],
+                               need_b=ctx.needs_input_grad[1], scale=2.0)
+        return (None if da is None else da.to(a.dtype),
+                None if db is None else db.to(b.dtype), None, None, None, None)
 
 
 def make_pair_sum(kernel: str, params: Sequence[float], exclude_diag: bool,
