@@ -55,6 +55,7 @@ package beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import multiprocessing
@@ -104,6 +105,23 @@ RAGGED_STATS_SHAPES = [(1, 7, 3), (33, 17, 5), (130, 70, 130)]
 SLICE_SHAPE = (64, 64, 16)
 DENSE_VS_FUSED_ROWS = (64, 256, 1024, 4096)    # rows per side, rq, d 16
 TIMED_STEPS = 10          # bf16 macro-steps timed after one warm-up
+
+# phase 5: the flags of exp/cifar10_sn_smmd_resnet.sh, then the cut to 24
+# macro-steps with every event of the training run inside them
+FLAGSHIP_TRAIN_FLAGS = [
+    "--is_train", "true", "--dataset", "cifar10", "--architecture", "resnet",
+    "--model", "sn-smmd", "--kernel", "rq", "--batch_size", "64", "--output_size", "32",
+    "--dof_dim", "16", "--learning_rate", "1e-4", "--beta1", "0.5", "--beta2", "0.9",
+    "--dsteps", "5", "--start_dsteps", "10", "--scaling_coeff", "10.0",
+    "--max_iteration", "150000", "--MMD_lr_scheduler", "true", "--decay_rate", "0.8",
+    "--compute_scores", "true", "--score_every", "2000", "--compute_dtype", "bfloat16",
+    "--scaling_grad_estimator", "hutchinson", "--steps_per_dispatch", "4",
+    "--ema_decay", "0.9999"]
+TRAINER_CUT_FLAGS = [
+    "--dataset", "synthetic", "--max_iteration", "24", "--warmup_iterations", "8",
+    "--log_every", "4", "--sample_every", "12", "--checkpoint_every", "12",
+    "--score_every", "12", "--no_of_samples", "2048", "--score_subsets", "10",
+    "--scheduler_test_size", "1000", "--scheduler_patience", "1"]
 
 
 def log(msg: str) -> None:
@@ -875,6 +893,212 @@ def check_two_ranks(cfg, state, real, fake, one_rank, results: dict,
         f"gradients within {err:.3g} abs (largest entry {scale:.3g})")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training run
+
+
+@contextlib.contextmanager
+def deterministic_torch():
+    """Deterministic algorithms and cuDNN for the block, restored after
+    (cuBLAS reads CUBLAS_WORKSPACE_CONFIG, set before CUDA starts)."""
+    import torch
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
+
+
+def _timed(obj, name: str, sink: list) -> None:
+    """Wrap ``obj.name`` so each call's seconds, synchronised, go to ``sink``."""
+    import torch
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def _log_rows(trainer) -> list:
+    with open(trainer.writer.path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_png(path: str) -> tuple:
+    """(width, height) from the signature and IHDR of a PNG file."""
+    import struct
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        fail(f"{path}: no PNG signature / IHDR")
+    return struct.unpack(">II", head[16:24])
+
+
+def _state_diffs(a: dict, b: dict, where: str = "") -> list:
+    """Paths at which two checkpoint dicts differ (tensors bit for bit)."""
+    import torch
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [where or "/"]
+        return [d for k in a for d in _state_diffs(a[k], b[k], f"{where}/{k}")]
+    if isinstance(a, torch.Tensor):
+        return [] if isinstance(b, torch.Tensor) and torch.equal(a, b) else [where]
+    return [] if a == b else [where]
+
+
+def _resume_worker(tree: str, cfg_fields: dict, device: str, out_path: str) -> None:
+    """Run B's second half in a fresh process, as a user resumes: a new
+    ``Trainer`` from run B's step-12 checkpoint to 24; its final state goes
+    to ``out_path``."""
+    import torch
+    sys.path.insert(0, tree)
+    from smmdax_torch import checkpoint
+    from smmdax_torch.configs import Config
+    from smmdax_torch.trainer import Trainer
+    # a spawned process starts with PyTorch's defaults (cuDNN in TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with deterministic_torch():
+        trainer = Trainer(Config(**cfg_fields), device=device)
+        resumed_at = trainer.state.step
+        state = trainer.train()
+    torch.save(dict(resumed_at=resumed_at, state=checkpoint.state_dict(state)), out_path)
+
+
+def run_trainer(tmp: str, results: dict, tree: str = HERE, device: str = "cuda") -> dict:
+    """Phase 5 (see the module docstring).  Returns the kernels' launches
+    in run A."""
+    import dataclasses
+    import torch
+    from smmdax_torch import checkpoint
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.cuda import mmd_kernel as mk
+    from smmdax_torch.trainer import Trainer
+
+    def cfg_for(run: str, max_iteration: int):
+        dirs = [f"--{k}_dir" for k in ("checkpoint", "log", "sample")]
+        return config_from_args(
+            FLAGSHIP_TRAIN_FLAGS + TRAINER_CUT_FLAGS
+            + [x for d in dirs for x in (d, os.path.join(tmp, run, d[2:]))]
+            + ["--max_iteration", str(max_iteration)])
+
+    t_phase = time.perf_counter()
+    with deterministic_torch():
+        cfg_a = cfg_for("A", 24)
+        trainer_a = Trainer(cfg_a, device=device)
+        score_s, save_s = [], []
+        _timed(trainer_a, "_score", score_s)
+        _timed(trainer_a.ckpt, "save", save_s)
+        counters = mk.kernel_launch_counters()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        state_a = trainer_a.train()
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in counters}
+        rows_a = _log_rows(trainer_a)
+
+        cfg_b = cfg_for("B", 12)
+        Trainer(cfg_b, device=device).train()
+    # the resume runs in a fresh process: nothing of this one's history
+    # (allocator, autograd engine, cuDNN plans) may change the trajectory
+    out = os.path.join(tmp, "resumed.pt")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_resume_worker, args=(tree, dataclasses.asdict(cfg_b.replace(max_iteration=24)),
+                                     device, out))
+    proc.start()
+    proc.join(600)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    if proc.exitcode != 0 or not os.path.exists(out):
+        fail(f"trainer: the resuming process exited with {proc.exitcode}")
+    resumed = torch.load(out, weights_only=True)
+    if resumed["resumed_at"] != 12:
+        fail(f"trainer: run B resumed at step {resumed['resumed_at']}, not 12")
+    with open(os.path.join(cfg_b.log_dir, cfg_b.run_name() + ".jsonl")) as f:
+        rows_b = [json.loads(line) for line in f]
+    cfg = cfg_a
+
+    missing = [k for k in ("pair_sum", "pair_sum_grad_a") if launches[k] == 0]
+    if missing:
+        fail(f"trainer: run A did not launch {missing} ({launches})")
+    bad = [(r["step"], k) for r in rows_a + rows_b for k, v in r.items()
+           if not math.isfinite(v)]
+    if bad:
+        fail(f"trainer: non-finite logged metrics {bad}")
+    scores = {r["step"]: r for r in rows_a if "fid" in r}
+    if sorted(scores) != [12, 24] or not all(
+            {"fid", "kid", "kid_std", "lr_decayed"} <= set(r) for r in scores.values()):
+        fail(f"trainer: score rows {scores}")
+    meta = trainer_a.ckpt.best_meta()
+    if "three_sample_p" in scores[24]:
+        if "three_sample_t" not in scores[24]:
+            fail(f"trainer: step-24 row {scores[24]}")
+        decision = ("p-value test: p {three_sample_p:.4g}, t {three_sample_t:.4g}, "
+                    "LR decayed {lr_decayed:g}".format(**scores[24]))
+    elif meta["best_step"] == 24 and scores[24]["kid"] < scores[12]["kid"]:
+        decision = "KID improved: the step-24 model became the best snapshot"
+    else:
+        fail(f"trainer: no scheduler decision at step 24 ({scores[24]}, meta {meta})")
+    ckpt_dir = trainer_a.ckpt.directory
+    if trainer_a.ckpt.latest_step() != 24 or not os.path.exists(
+            os.path.join(ckpt_dir, "best", "state", "state.pt")):
+        fail(f"trainer: checkpoints {os.listdir(ckpt_dir)}")
+    pngs = [os.path.join(cfg.sample_dir, cfg.run_name(), f"sample_{s:07d}.png")
+            for s in (12, 24)]
+    sizes = [_check_png(p) for p in pngs]
+
+    diffs = _state_diffs(checkpoint.state_dict(state_a), resumed["state"])
+    if diffs:
+        fail(f"trainer: resumed state differs from the uninterrupted one at {diffs[:20]}")
+    score_b = next(r for r in rows_b if "fid" in r and r["step"] == 24)
+    drop = lambda r: {k: v for k, v in r.items() if k != "time"}
+    if drop(score_b) != drop(scores[24]):
+        fail(f"trainer: resumed step-24 scores {score_b} vs uninterrupted {scores[24]}")
+
+    # images/s per log interval after the warm-up; an interval that
+    # starts at a sample / checkpoint / scoring step also carries them
+    rates = {r["step"]: r["images_per_sec"] for r in rows_a
+             if "images_per_sec" in r and r["step"] > cfg.warmup_iterations}
+    quiet = [v for s, v in rates.items() if (s - cfg.log_every) % 12 != 0]
+    out = dict(launches=launches, wall_s_run_a=wall_a, images_per_s_by_log_row=rates,
+               images_per_s=sorted(quiet)[len(quiet) // 2],
+               macro_step_images_per_s=results["flagship bf16"]["images_per_s"],
+               ms_per_score=[1e3 * t for t in score_s],
+               ms_per_checkpoint_save=[1e3 * t for t in save_s],
+               checkpoint_mb=os.path.getsize(os.path.join(ckpt_dir, "24.pt")) / 2**20,
+               scores={s: drop(r) for s, r in scores.items()}, decision=decision,
+               png_sizes=sizes, phase_s=time.perf_counter() - t_phase)
+    results["trainer"] = out
+    log(f"trainer: run A 24 macro-steps in {wall_a:.2f} s; launches {launches}")
+    log("trainer: images/s per log row after warm-up "
+        + ", ".join(f"step {s}: {v:.1f}" for s, v in rates.items())
+        + f"; median of the rows without events {out['images_per_s']:.1f}, against "
+          f"{out['macro_step_images_per_s']:.1f} for phase 3's bare macro-step")
+    log("trainer: ms per scoring event " + ", ".join(f"{t:.1f}" for t in out["ms_per_score"])
+        + "; ms per checkpoint save " + ", ".join(f"{t:.1f}" for t in out["ms_per_checkpoint_save"])
+        + f" ({out['checkpoint_mb']:.1f} MB each)")
+    log(f"trainer: scores at 12 {scores[12]['kid']:.5g} KID / {scores[12]['fid']:.5g} FID, "
+        f"at 24 {scores[24]['kid']:.5g} / {scores[24]['fid']:.5g}; {decision}; PNGs {sizes}")
+    log("trainer: run B (to 12, then resumed to 24 in a fresh process) equals run A bit "
+        "for bit in every parameter, buffer, Adam moment, EMA shadow, lr, sched_fails and "
+        "the generator state, and in its step-24 scores (deterministic algorithms on)")
+    log(f"trainer phase: {out['phase_s']:.1f} s")
+    return launches
+
+
 def profile_only(results: dict) -> int:
     """The timed and profiled bf16 macro-steps of phases 3 and 4 alone."""
     import torch
@@ -912,6 +1136,8 @@ def main(argv=None) -> int:
                              "us per launch of each csrc kernel, and no ok line")
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
+    # cuBLAS reads it when CUDA starts: phase 5 runs deterministic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
     if not torch.cuda.is_available():
@@ -991,6 +1217,10 @@ def main(argv=None) -> int:
         log("2-rank ring: skipped, 1 card")
     log(f"tmmd ring phase: {time.perf_counter() - t0:.1f} s")
 
+    # phase 5
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = run_trainer(tmp, results, tree)
+
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
 
@@ -1028,6 +1258,9 @@ def main(argv=None) -> int:
              one_sweep=dict(ms=ts["stats2_bwd_ms"], plain_ms=ts["stats2_bwd_plain_ms"],
                             bound_ms=ts["stats2_bwd_bound_ms"])),
     ]
+    # launches on the training run of phase 5 (run A) beside the step's
+    for kern, counter in zip(kernels, KERNEL_PARTS):
+        kern["trainer_launches"] = trainer[counter]
     card = card_line()
     results.update(kernels=kernels, card=card)
     if args.out:

@@ -1,25 +1,30 @@
-"""Configuration of the PyTorch port: a copy of ``smmdax.configs.Config``.
+"""Configuration of the PyTorch port: a copy of ``smmdax.configs.Config``
+and of its command line.
 
 Same field names, defaults and validation as the JAX package, so a JAX
-``Config`` translates field for field (``Config(**dataclasses.asdict(c))``).
-One default differs: ``pallas_min_rows`` is 0, so ``use_pallas="auto"``
-takes the hand-written CUDA pair-sum kernels at every size on the card
-(the JAX default of 4096 rows is a TPU crossover; the H100's is not
-measured yet).  The fields keep their JAX names: ``use_pallas`` selects
-the fused CUDA path here.
+``Config`` translates field for field (``Config(**dataclasses.asdict(c))``),
+and ``build_argparser`` gives the same flags as the JAX CLI.  One default
+differs: ``pallas_min_rows`` is 0, so ``use_pallas="auto"`` takes the
+hand-written CUDA pair-sum kernels at every size on the card (the JAX
+default of 4096 rows is a TPU crossover; on the H100 the fused path is
+faster than the dense one at every size from 64 to 4096 rows, PERF.md).
+The fields keep their JAX names: ``use_pallas`` selects the fused CUDA
+path here.
 
 ``num_data_shards`` and ``use_ring_mmd`` are honoured as in the JAX
 package: a multi-shard config without a ``DataAxis`` never takes the
-fused kernels, and with one the ring estimators serve the losses.
-Fields that only later slices read (scoring, scheduler, data placement,
-dispatch) are kept so configs stay interchangeable.
+fused kernels, and with one the ring estimators serve the losses.  The
+trainer (``smmdax_torch.trainer``) reads the scoring, scheduler and
+dispatch fields; it refuses ``num_data_shards > 1``, ``on_device_data``
+and ``data_placement="device"``, which are not ported yet.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 DEFAULT_RBF_SIGMAS: Tuple[float, ...] = (1.0, 2.0, 4.0, 8.0, 16.0)
 DEFAULT_RQ_ALPHAS: Tuple[float, ...] = (0.2, 0.5, 1.0, 2.0, 5.0)
@@ -229,3 +234,45 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def run_name(self) -> str:
+        tag = f"{self.dataset}_{self.architecture}_{self.model}_{self.kernel}_b{self.batch_size}"
+        return tag + (f"_{self.suffix}" if self.suffix else "")
+
+
+def _add_bool(p: argparse.ArgumentParser, name: str, default: bool, help: str = ""):
+    p.add_argument(f"--{name}", type=lambda s: s.lower() in ("1", "true", "yes"),
+                   default=default, help=help)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    """One flag per ``Config`` field, with the JAX CLI's names, defaults
+    and types."""
+    p = argparse.ArgumentParser("smmdax_torch", description=__doc__)
+    defaults = Config()
+    for f in dataclasses.fields(Config):
+        if f.type == "bool" or isinstance(getattr(defaults, f.name), bool):
+            _add_bool(p, f.name, getattr(defaults, f.name))
+        elif f.name in ("rbf_sigmas", "rq_alphas"):
+            p.add_argument(f"--{f.name}", type=float, nargs="+",
+                           default=list(getattr(defaults, f.name)))
+        elif f.name in ("g_learning_rate", "d_learning_rate"):
+            p.add_argument(f"--{f.name}", type=float, default=None)
+        else:
+            p.add_argument(f"--{f.name}", type=type(getattr(defaults, f.name)),
+                           default=getattr(defaults, f.name))
+    return p
+
+
+def config_from_namespace(ns: argparse.Namespace) -> Config:
+    """Config from a parsed namespace, ignoring any non-Config attributes
+    (so entry points can add flags of their own, such as ``--device``)."""
+    names = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in vars(ns).items() if k in names}
+    kw["rbf_sigmas"] = tuple(kw["rbf_sigmas"])
+    kw["rq_alphas"] = tuple(kw["rq_alphas"])
+    return Config(**kw)
+
+
+def config_from_args(argv: Optional[Sequence[str]] = None) -> Config:
+    return config_from_namespace(build_argparser().parse_args(argv))

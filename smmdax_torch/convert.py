@@ -17,7 +17,7 @@ becomes ``block0.conv1.weight``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -91,3 +91,13 @@ def state_from_jax(cfg: Config, jstate, device="cuda") -> TrainState:
     if jstate.g_stats_ema is not None:
         state.g_stats_ema = _tensors(flatten(jstate.g_stats_ema), dev)
     return state
+
+
+def random_conv_weights_from_jax(extractor, c_in: int = 3) -> List[Array]:
+    """The four HWIO kernels of the JAX package's ``RandomConvFeatures``
+    (drawn for ``c_in`` input channels if it has not run yet), as numpy:
+    pass them as ``weights=`` to the port's ``RandomConvFeatures`` for
+    features, and so scores, equal to the JAX extractor's."""
+    if extractor._params is None:
+        extractor._init(c_in)
+    return [np.asarray(w, np.float32) for w in extractor._params]

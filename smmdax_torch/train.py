@@ -30,6 +30,11 @@ generator's BN running averages pmean'd over the ranks, so the state
 stays identical on every rank.  Each rank normalises with the batch
 statistics of its own block (no synced BN).  ``data_parallel_train_step``
 takes the global macro-batch and hands each rank its block.
+
+``dispatch_train_step`` is the single-device counterpart of JAX's
+``jit_train_step``: k macro-steps per call on a (k, ...) batch stack, as
+the trainer dispatches them.  ``sample`` and ``interpolate`` generate in
+eval mode from the EMA weights, with their own ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -304,9 +309,22 @@ def build_train_step(cfg: Config, dsteps: int, gsteps: int,
     ``noise``: every draw of the macro-step (keys as ``draw_noise``), e.g.
     to replay another implementation's draws; drawn from
     ``state.generator`` when None.  Metrics are 0-d device tensors with
-    the JAX package's keys, global over the ranks."""
+    the JAX package's keys, global over the ranks.
+
+    The backward passes run on the calling thread.  On a CUDA device
+    PyTorch's autograd engine otherwise runs them on a worker thread, and
+    the sigma term's create-graph backward then builds its nodes there: the
+    engine orders ready nodes by sequence numbers counted per thread, so the
+    order in which a parameter's gradient contributions are summed (and so
+    its float32 value) would depend on how many nodes each thread has made
+    before in the process, and a run resumed in a new process would leave
+    the uninterrupted trajectory."""
 
     def train_step(state: TrainState, real, noise: Optional[Noise] = None):
+        with torch.autograd.set_multithreading_enabled(False):
+            return _macro_step(state, real, noise)
+
+    def _macro_step(state: TrainState, real, noise: Optional[Noise]):
         dev = state.device
         real = torch.as_tensor(real).to(dev)
         if real.dtype == torch.uint8:
@@ -375,6 +393,50 @@ def data_parallel_train_step(cfg: Config, dsteps: int, gsteps: int,
     return train_step
 
 
+def check_single_device(cfg: Config) -> None:
+    """Raise for the execution modes of the JAX trainer that the port has
+    not ported yet."""
+    if cfg.num_data_shards > 1:
+        raise NotImplementedError(
+            f"num_data_shards={cfg.num_data_shards}: the trainer over several "
+            "ranks and the GSPMD-mode program are not ported yet (ROADMAP "
+            "A.12); data_parallel_train_step is the per-rank step")
+    if cfg.on_device_data:
+        raise NotImplementedError(
+            "on_device_data: batches drawn in the program are not ported yet "
+            "(ROADMAP A.7)")
+    if cfg.data_placement == "device":
+        raise NotImplementedError(
+            "data_placement='device': the device-resident dataset is not "
+            "ported yet (ROADMAP A.7)")
+
+
+def dispatch_train_step(cfg: Config, dsteps: int, gsteps: int,
+                        steps_per_dispatch: int = 1
+                        ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+    """The single-device counterpart of ``jit_train_step``: ``step(state,
+    real) -> (state, metrics)`` running ``steps_per_dispatch`` (k)
+    macro-steps per call.  With k > 1, ``real`` is the (k, dsteps + gsteps,
+    B, H, W, C) stack, copied to the device once, and the metrics are the
+    last macro-step's.  The macro-steps run one after another, so the
+    state is bit-identical to k calls of ``build_train_step``."""
+    check_single_device(cfg)
+    step = build_train_step(cfg, dsteps, gsteps)
+    k = steps_per_dispatch
+    if k == 1:
+        return step
+
+    def multi(state: TrainState, reals):
+        reals = torch.as_tensor(reals).to(state.device)
+        if reals.shape[0] != k:
+            raise ValueError(f"a dispatch of {k} macro-steps got {reals.shape[0]} batches")
+        for real in reals:
+            state, metrics = step(state, real)
+        return state, metrics
+
+    return multi
+
+
 # ---------------------------------------------------------------------------
 # eval-mode generation
 
@@ -394,6 +456,18 @@ def eval_g_stats(state: TrainState) -> Dict[str, Tensor]:
     return dict(state.gen.named_buffers())
 
 
+def _eval_weights(state: TrainState, use_ema: bool) -> Dict[str, Tensor]:
+    if use_ema:
+        return {**eval_g_params(state), **eval_g_stats(state)}
+    return {**dict(state.gen.named_parameters()), **dict(state.gen.named_buffers())}
+
+
+def _own_generator(state: TrainState, generator: torch.Generator) -> None:
+    if generator is state.generator:
+        raise ValueError("sampling needs its own torch.Generator: drawing "
+                         "from state.generator would shift the train step's noise")
+
+
 def sample(cfg: Config, state: TrainState, generator: torch.Generator, n: int,
            use_ema: bool = True) -> Tensor:
     """n images (n, H, W, C) in eval mode, batch_size at a time, from the
@@ -401,14 +475,8 @@ def sample(cfg: Config, state: TrainState, generator: torch.Generator, n: int,
     Latents come from ``generator`` (on the state's device), never from
     the train step's ``state.generator``: sampling leaves training as it
     was."""
-    if generator is state.generator:
-        raise ValueError("sample() needs its own torch.Generator: drawing "
-                         "from state.generator would shift the train step's noise")
-    if use_ema:
-        weights = {**eval_g_params(state), **eval_g_stats(state)}
-    else:
-        weights = {**dict(state.gen.named_parameters()),
-                   **dict(state.gen.named_buffers())}
+    _own_generator(state, generator)
+    weights = _eval_weights(state, use_ema)
     bs = cfg.batch_size
     chunks = []
     with torch.no_grad():
@@ -418,3 +486,20 @@ def sample(cfg: Config, state: TrainState, generator: torch.Generator, n: int,
             chunks.append(torch.func.functional_call(
                 state.gen, weights, (z,), {"train": False}))
     return torch.cat(chunks)[:n]
+
+
+def interpolate(cfg: Config, state: TrainState, generator: torch.Generator,
+                rows: int = 8, cols: int = 8, use_ema: bool = True) -> Tensor:
+    """Latent interpolation grid (rows * cols, H, W, C): each row walks z
+    linearly between two endpoints uniform in [-1, 1], decoded in eval
+    mode from the EMA weights when tracked (unless ``use_ema=False``).
+    The endpoints come from ``generator``, as in ``sample``."""
+    _own_generator(state, generator)
+    dev = state.device
+    z0 = torch.rand((rows, cfg.z_dim), generator=generator, device=dev) * 2.0 - 1.0
+    z1 = torch.rand((rows, cfg.z_dim), generator=generator, device=dev) * 2.0 - 1.0
+    t = torch.linspace(0.0, 1.0, cols, device=dev)[None, :, None]
+    z = (z0[:, None, :] * (1.0 - t) + z1[:, None, :] * t).reshape(rows * cols, cfg.z_dim)
+    with torch.no_grad():
+        return torch.func.functional_call(state.gen, _eval_weights(state, use_ema),
+                                          (z,), {"train": False})

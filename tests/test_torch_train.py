@@ -250,3 +250,24 @@ def test_step_draws_its_own_noise_on_the_state_generator():
     assert torch.equal(state.generator.get_state(), g_train)   # training's stream untouched
     with pytest.raises(ValueError, match="own torch.Generator"):
         ttrain.sample(tcfg, state, state.generator, n=4)
+
+
+def test_step_runs_backward_on_calling_thread():
+    """The step's backward passes run with the autograd engine's worker
+    threads off, so every node's sequence number comes from the calling
+    thread and the order in which gradient contributions are summed does
+    not depend on what ran before in the process (on the card the sigma
+    term's create-graph backward would otherwise build its nodes on the
+    engine's CUDA thread)."""
+    import threading
+    _, tcfg = configs(**OVERRIDES)
+    state = ttrain.create_state(tcfg, seed=1, device="cpu")
+    seen = []
+    for p in list(state.disc.parameters())[:1] + list(state.gen.parameters())[:1]:
+        p.register_hook(lambda g: seen.append((threading.get_ident(),
+                                               torch._C._is_multithreading_enabled())) or g)
+    real = rng(11).integers(0, 256, (DSTEPS + GSTEPS, 16) + tcfg.image_shape, dtype=np.uint8)
+    ttrain.build_train_step(tcfg, DSTEPS, GSTEPS)(state, real)
+    assert len(seen) >= DSTEPS + GSTEPS
+    assert all(s == (threading.get_ident(), False) for s in seen), seen
+    assert torch._C._is_multithreading_enabled()        # restored after the step
