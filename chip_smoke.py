@@ -44,7 +44,31 @@ Phases, each fatal on failure:
    estimator on the trained features, and the critic's gradients under
    the ring against the single-device dense tmmd loss's.  With two or more
    cards, also the ring loss and gradient on two ranks, one per card,
-   against the one-rank result.
+   against the one-rank result;
+5. the training run: ``exp/cifar10_sn_smmd_resnet.sh``'s flags at full
+   width cut to 24 macro-steps with every event inside (samples,
+   checkpoints, scoring and the scheduler), deterministic, and a second
+   run resumed from step 12 in a fresh process, equal bit for bit;
+6. the three DCGAN families at their ``exp/`` flags (gf/df 64, z 128, B
+   64, 5 + 1 updates, float32): ``cifar10_smmd_dcgan.sh`` (smmd, exact
+   sigma), ``cifar10_mmd_gp.sh`` (mmd, witness penalty 1) and
+   ``cifar10_wgan_gp.sh`` (dof 1, penalty 10 two-sided): timed and
+   profiled macro-steps with the launch counters read around them, finite
+   metrics, and the fused MMD^2 held to the dense one on trained features;
+7. a training run of ``exp/toy_gaussian_mix.sh``'s flags cut to
+   ``TOY_STEPS`` macro-steps with samples inside: every dispatch gets
+   float32 batches, ``witness_fn`` is finite on the card, ``plot_toy_frame``
+   draws nothing without matplotlib, and the MMD^2 between 2048 generated
+   and 2048 real samples is printed at the start and the end;
+8. device-resident data and remat: the flagship's training run with
+   ``data_placement="device"`` at K=16 against host-fed at K=4, in turns
+   (host, device, device, host), images/s as the median of the log
+   windows after the first; K=1 and K=4 under device placement bit for
+   bit; a device-placed run resumed in a fresh process equal bit for bit
+   to the straight one; and one macro-step at
+   ``exp/celeba160_sn_smmd_resnet.sh``'s model flags on synthetic 160 px
+   data with remat off and on: the critic's and the generator's gradients
+   equal to rel 1e-6, peak device memory and ms per macro-step of each.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -696,7 +720,7 @@ def run_slice(cfg, steps: int, label: str, results: dict, required,
     return state, launches
 
 
-def check_fused_loss(cfg, state) -> None:
+def check_fused_loss(cfg, state, label: str = "flagship") -> None:
     """The MMD^2 objective through the kernels equals the dense oracle on
     the trained state's features."""
     import torch
@@ -711,8 +735,8 @@ def check_fused_loss(cfg, state) -> None:
         fused = float(mmd2_objective(cfg, f_fake, f_real))
         dense = float(mmd2_objective(cfg.replace(use_pallas="off"), f_fake, f_real))
     if not abs(fused - dense) <= VALUE_ATOL + VALUE_RTOL * abs(dense):
-        fail(f"flagship MMD^2 fused {fused} vs dense {dense}")
-    log(f"flagship MMD^2 on trained features: fused {fused:.6g}, dense {dense:.6g}")
+        fail(f"{label} MMD^2 fused {fused} vs dense {dense}")
+    log(f"{label} MMD^2 on trained features: fused {fused:.6g}, dense {dense:.6g}")
 
 
 # ---------------------------------------------------------------------------
@@ -1099,6 +1123,364 @@ def run_trainer(tmp: str, results: dict, tree: str = HERE, device: str = "cuda")
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the DCGAN families
+
+
+# the model flags of the three DCGAN exp/ scripts
+DCGAN_FLAGS = {
+    "dcgan smmd": ["--model", "smmd", "--kernel", "rq", "--batch_size", "64",
+                   "--real_batch_size", "64", "--z_dim", "128", "--gf_dim", "64",
+                   "--df_dim", "64", "--dof_dim", "16", "--learning_rate", "1e-4",
+                   "--beta1", "0.5", "--beta2", "0.9", "--dsteps", "5",
+                   "--with_scaling", "true", "--scaling_coeff", "10.0"],
+    "dcgan mmd-gp": ["--model", "mmd", "--kernel", "rq", "--batch_size", "64",
+                     "--dof_dim", "16", "--gradient_penalty", "1.0",
+                     "--learning_rate", "1e-4", "--dsteps", "5"],
+    "dcgan wgan-gp": ["--model", "wgan-gp", "--kernel", "rq", "--dof_dim", "1",
+                      "--batch_size", "64", "--gradient_penalty", "10.0",
+                      "--gp_variant", "two_sided", "--learning_rate", "1e-4",
+                      "--dsteps", "5"],
+}
+
+
+def dcgan_config(label: str):
+    from smmdax_torch.configs import config_from_args
+    return config_from_args(["--dataset", "synthetic", "--architecture", "dcgan",
+                             "--output_size", "32"] + DCGAN_FLAGS[label])
+
+
+def run_dcgan(results: dict) -> dict:
+    """Phase 6; returns {label: launches over the timed run}."""
+    launches = {}
+    for label in DCGAN_FLAGS:
+        cfg = dcgan_config(label)
+        required = () if cfg.model == "wgan-gp" else ("pair_sum", "pair_sum_grad_a")
+        state, launches[label] = run_slice(cfg, TIMED_STEPS, label, results, required,
+                                           profile=True)
+        check_fused_loss(cfg, state, label)
+        del state
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the toy
+
+
+TOY_FLAGS = [
+    "--is_train", "true", "--dataset", "gaussian_mix", "--architecture", "mlp",
+    "--model", "mmd", "--kernel", "gaussian", "--rbf_sigmas", "0.1", "0.25", "0.5", "1.0",
+    "--batch_size", "256", "--z_dim", "8", "--dof_dim", "8", "--learning_rate", "3e-3",
+    "--dsteps", "3", "--start_dsteps", "3", "--max_iteration", "3000",
+    "--MMD_lr_scheduler", "false", "--log_every", "200", "--sample_every", "500"]
+TOY_STEPS = 300
+TOY_CUT_FLAGS = ["--max_iteration", str(TOY_STEPS), "--log_every", "50",
+                 "--sample_every", "100", "--checkpoint_every", "0"]
+
+
+def _toy_mmd2(cfg, trainer) -> float:
+    """MMD^2 (the config's kernel, dense) between 2048 generated samples and
+    2048 real ones (the frames' key)."""
+    import torch
+    from smmdax_torch.kernels import kernel_matrices, mmd2
+    from smmdax_torch.train import sample
+    fake = sample(cfg, trainer.state, torch.Generator(device="cuda").manual_seed(0), 2048)
+    real = torch.from_numpy(trainer.source.batch(2048, key=2**31)).cuda()
+    return float(mmd2(kernel_matrices(cfg.kernel, fake, real, rbf_sigmas=cfg.rbf_sigmas)))
+
+
+def run_toy(tmp: str, results: dict) -> dict:
+    """Phase 7; returns the kernels' launches over the run."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.cuda import mmd_kernel as mk
+    from smmdax_torch.trainer import Trainer
+    from smmdax_torch.viz import plot_toy_frame, witness_fn
+
+    dirs = [x for d in ("checkpoint", "log", "sample") for x in (f"--{d}_dir",
+                                                                  os.path.join(tmp, d))]
+    cfg = config_from_args(TOY_FLAGS + TOY_CUT_FLAGS + dirs)
+    trainer = Trainer(cfg, device="cuda")
+    mmd_start = _toy_mmd2(cfg, trainer)
+    dtypes = set()
+    get_step = trainer._get_step
+
+    def recording(dsteps, k):
+        fn = get_step(dsteps, k)
+
+        def step(state, batch):
+            dtypes.add(str(batch.dtype))
+            return fn(state, batch)
+        return step
+
+    trainer._get_step = recording
+    counters = mk.kernel_launch_counters()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    if dtypes != {"float32"}:
+        fail(f"toy: the step received {dtypes} batches, not float32")
+    missing = [k for k in ("pair_sum", "pair_sum_grad_a") if launches[k] == 0]
+    if missing:
+        fail(f"toy: the run did not launch {missing} ({launches})")
+    rows = _log_rows(trainer)
+    bad = [(r["step"], k) for r in rows for k, v in r.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"toy: non-finite logged metrics {bad}")
+    mmd_end = _toy_mmd2(cfg, trainer)
+
+    critic = trainer.toy_critic()
+    real = trainer.source.batch(2048, key=2**31)
+    grid = np.linspace(-1.3, 1.3, 301, dtype=np.float32)[:, None]
+    with torch.no_grad():
+        fake = trainer.state.gen(torch.rand((2048, cfg.z_dim), device="cuda") * 2 - 1)
+        w = witness_fn(cfg, critic, grid, critic(real), critic(fake))
+    if w.shape != (301,) or not np.isfinite(w).all():
+        fail(f"toy: witness_fn gave shape {w.shape}, finite {np.isfinite(w).all()}")
+    frames_dir = os.path.join(cfg.sample_dir, cfg.run_name())
+    frames = sorted(os.listdir(frames_dir)) if os.path.isdir(frames_dir) else []
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if has_mpl:
+        every = cfg.sample_every
+        want = [f"toy_{s:07d}.png" for s in range(every, TOY_STEPS + 1, every)]
+        if frames != want:
+            fail(f"toy: frames {frames}, expected {want}")
+    else:
+        probe_dir = os.path.join(tmp, "frame_probe")
+        if frames or plot_toy_frame(cfg, critic, real, fake.cpu().numpy(), 0,
+                                    probe_dir) is not None or os.path.exists(probe_dir):
+            fail(f"toy: without matplotlib something was drawn ({frames})")
+    per_step = cfg.dsteps + cfg.gsteps
+    rates = [r["images_per_sec"] for r in rows if "images_per_sec" in r]
+    out = dict(launches=launches, launches_per_macro_step={k: v / TOY_STEPS for k, v in
+                                                           launches.items()},
+               wall_s=wall, ms_per_macro_step=1e3 * wall / TOY_STEPS,
+               images_per_s_by_log_row=rates, mmd2_start=mmd_start, mmd2_end=mmd_end,
+               witness_range=[float(w.min()), float(w.max())], matplotlib=has_mpl,
+               frames=frames, batch_dtypes=sorted(dtypes))
+    results["toy"] = out
+    log(f"toy: {TOY_STEPS} macro-steps ({cfg.dsteps} + {cfg.gsteps} updates, B "
+        f"{cfg.batch_size} fake / {cfg.real_batch_size} real) in {wall:.2f} s "
+        f"({out['ms_per_macro_step']:.2f} ms per macro-step, {per_step} updates); "
+        "images/s per log row " + ", ".join(f"{v:.1f}" for v in rates))
+    log("toy: launches per macro-step " + ", ".join(
+        f"{k} {v:g}" for k, v in out["launches_per_macro_step"].items()))
+    log(f"toy: batches reached the step as {sorted(dtypes)}; witness on 301 points in "
+        f"[{w.min():.4g}, {w.max():.4g}]; matplotlib {'present' if has_mpl else 'absent'}, "
+        f"frames {frames}")
+    log(f"toy: MMD^2 (2048 generated vs 2048 real, {cfg.kernel} {cfg.rbf_sigmas}) "
+        f"{mmd_start:.6g} at step 0, {mmd_end:.6g} at step {TOY_STEPS}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: device-resident data and remat
+
+
+DATA_ARM_STEPS = 64       # per arm run: 4 log windows of 16 macro-steps
+DATA_ARM_CUT_FLAGS = [
+    "--dataset", "synthetic", "--warmup_iterations", "0", "--log_every", "16",
+    "--sample_every", "0", "--checkpoint_every", "0", "--compute_scores", "false",
+    "--MMD_lr_scheduler", "false", "--max_iteration", str(DATA_ARM_STEPS)]
+CELEBA160_MODEL_FLAGS = [
+    "--dataset", "synthetic", "--architecture", "resnet", "--model", "sn-smmd",
+    "--kernel", "rq", "--batch_size", "64", "--output_size", "160", "--dof_dim", "16",
+    "--gf_dim", "32", "--df_dim", "32", "--learning_rate", "1e-4", "--dsteps", "5",
+    "--scaling_coeff", "10.0", "--compute_dtype", "bfloat16",
+    "--scaling_grad_estimator", "hutchinson", "--ema_decay", "0.9999"]
+REMAT_REL_TOL = 1e-6
+
+
+def _dirs(tmp: str, run: str) -> list:
+    return [x for d in ("checkpoint", "log", "sample")
+            for x in (f"--{d}_dir", os.path.join(tmp, run, d))]
+
+
+def time_data_arms(tmp: str, results: dict) -> None:
+    """The flagship's training run host-fed at K=4 and device-placed at
+    K=16, in turns (host, device, device, host); images/s of each run is
+    the median of its log windows after the first."""
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.trainer import Trainer
+    arms = {"host K=4": ["--steps_per_dispatch", "4"],
+            "device K=16": ["--steps_per_dispatch", "16", "--data_placement", "device"]}
+    runs = {name: [] for name in arms}
+    for i, name in enumerate(["host K=4", "device K=16", "device K=16", "host K=4"]):
+        cfg = config_from_args(FLAGSHIP_TRAIN_FLAGS + DATA_ARM_CUT_FLAGS + arms[name]
+                               + _dirs(tmp, f"arm{i}"))
+        trainer = Trainer(cfg, device="cuda")
+        t0 = time.perf_counter()
+        trainer.train()
+        wall = time.perf_counter() - t0
+        rates = [r["images_per_sec"] for r in _log_rows(trainer) if "images_per_sec" in r]
+        if len(rates) != DATA_ARM_STEPS // 16 or not all(math.isfinite(v) for v in rates):
+            fail(f"{name}: log windows {rates}")
+        after = sorted(rates[1:])
+        runs[name].append(dict(windows=rates, median=after[len(after) // 2], wall_s=wall))
+        log(f"{name} run {len(runs[name])}: images/s per 16-step window "
+            + ", ".join(f"{v:.1f}" for v in rates)
+            + f"; median after the first {runs[name][-1]['median']:.1f}; {wall:.2f} s")
+        del trainer
+    results["data_arms"] = runs
+    med = {n: sorted(r["median"] for r in v) for n, v in runs.items()}
+    log("data arms: device K=16 " + " / ".join(f"{v:.1f}" for v in med["device K=16"])
+        + " images/s against host K=4 " + " / ".join(f"{v:.1f}" for v in med["host K=4"]))
+
+
+def check_device_data_k_invariance(results: dict) -> None:
+    """K=1 and K=4 under device placement give bit-identical states
+    (deterministic algorithms on)."""
+    import torch
+    from smmdax_torch import checkpoint
+    from smmdax_torch.data import SyntheticImages, materialize_u8
+    from smmdax_torch.train import create_state, device_data_train_step
+    cfg = flagship_config("bfloat16").replace(data_placement="device")
+    src = SyntheticImages(size=32, channels=3, seed=cfg.random_seed)
+    pool = torch.from_numpy(materialize_u8(src, 4096)).cuda()
+    states = []
+    with deterministic_torch():
+        for k in (1, 4):
+            step = device_data_train_step(cfg, cfg.dsteps, cfg.gsteps, steps_per_dispatch=k)
+            state = create_state(cfg, seed=0, device="cuda")
+            for _ in range(4 // k):
+                state, metrics = step(state, pool)
+            torch.cuda.synchronize()
+            states.append(checkpoint.state_dict(state))
+    diffs = _state_diffs(*states)
+    if diffs:
+        fail(f"device data: K=1 and K=4 differ at {diffs[:20]}")
+    results["device_data_k_invariance"] = dict(macro_steps=4, identical=True)
+    log("device data: 4 flagship macro-steps as 4 x K=1 and 1 x K=4 give bit-identical "
+        "states (deterministic algorithms on)")
+
+
+def check_device_data_resume(tmp: str, results: dict, tree: str) -> None:
+    """A device-placed flagship run stopped at 8 and resumed to 16 in a
+    fresh process equals the straight run to 16, bit for bit."""
+    import dataclasses
+    import torch
+    from smmdax_torch import checkpoint
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.trainer import Trainer
+    cut = ["--dataset", "synthetic", "--warmup_iterations", "4", "--log_every", "4",
+           "--sample_every", "0", "--compute_scores", "false", "--MMD_lr_scheduler", "false",
+           "--data_placement", "device", "--device_data_pool", "4096"]
+    cfg = lambda run, n, ck: config_from_args(
+        FLAGSHIP_TRAIN_FLAGS + cut + _dirs(tmp, run)
+        + ["--max_iteration", str(n), "--checkpoint_every", str(ck)])
+    with deterministic_torch():
+        state_a = Trainer(cfg("dA", 16, 0), device="cuda").train()
+        torch.cuda.synchronize()
+        cfg_b = cfg("dB", 8, 8)
+        Trainer(cfg_b, device="cuda").train()
+    out = os.path.join(tmp, "device_resumed.pt")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_resume_worker, args=(tree, dataclasses.asdict(cfg_b.replace(max_iteration=16)),
+                                     "cuda", out))
+    proc.start()
+    proc.join(600)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    if proc.exitcode != 0 or not os.path.exists(out):
+        fail(f"device data resume: the resuming process exited with {proc.exitcode}")
+    resumed = torch.load(out, weights_only=True)
+    if resumed["resumed_at"] != 8:
+        fail(f"device data resume: resumed at step {resumed['resumed_at']}, not 8")
+    diffs = _state_diffs(checkpoint.state_dict(state_a), resumed["state"])
+    if diffs:
+        fail(f"device data resume: differs from the straight run at {diffs[:20]}")
+    results["device_data_resume"] = dict(resumed_at=8, steps=16, identical=True)
+    log("device data: a device-placed run (K=4, warm-up to 4) stopped at 8 and resumed to "
+        "16 in a fresh process equals the straight run bit for bit")
+
+
+def _remat_grads(cfg, state, real, noise):
+    """(critic loss, critic gradients, generator loss, generator gradients)
+    of the first critic and generator updates' losses on ``state``."""
+    import torch
+    from smmdax_torch.losses import critic_loss, generator_loss
+    from smmdax_torch.train import _refresh_spectral, critic_fn
+    critic = critic_fn(cfg, state.disc)
+    with torch.no_grad():
+        fake = state.gen(noise["d_z"][0], train=True)
+    _refresh_spectral(cfg, state.disc, "cuda")
+    d_loss, _ = critic_loss(cfg, critic, real[0], fake, probe=noise["d_probe"][0])
+    d_grads = torch.autograd.grad(d_loss, list(state.disc.parameters()))
+    state.disc.requires_grad_(False)
+    try:
+        g_loss, _ = generator_loss(cfg, critic, real[-1], state.gen(noise["g_z"][0], train=True),
+                                   probe=noise["g_probe"][0])
+        g_grads = torch.autograd.grad(g_loss, list(state.gen.parameters()))
+    finally:
+        state.disc.requires_grad_(True)
+    return [d_loss.detach(), *d_grads, g_loss.detach(), *g_grads]
+
+
+def check_remat(results: dict) -> None:
+    """Remat off and on at 160 px: gradients equal, then the peak memory and
+    ms of macro-steps of each."""
+    import torch
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.data import SyntheticImages, macro_batch_at
+    from smmdax_torch.data.transforms import normalize_uint8
+    from smmdax_torch.train import build_train_step, create_state, draw_noise
+    base = config_from_args(CELEBA160_MODEL_FLAGS)
+    per_step = base.dsteps + base.gsteps
+    src = SyntheticImages(size=160, channels=3, seed=base.random_seed)
+    batches = [macro_batch_at(src, s, per_step, base.real_batch_size, u8=True)
+               for s in range(3)]
+    real = normalize_uint8(torch.from_numpy(batches[0]).cuda())
+    grads = {}
+    with deterministic_torch():
+        for remat in (False, True):
+            cfg = base.replace(remat=remat)
+            state = create_state(cfg, seed=0, device="cuda")
+            noise = draw_noise(cfg, state, base.dsteps, base.gsteps)
+            grads[remat] = _remat_grads(cfg, state, real, noise)
+            del state
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(grads[True], grads[False])):
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+        if not err <= REMAT_REL_TOL * scale:
+            fail(f"remat: tensor {i} of the losses and gradients off by {err} at scale {scale}")
+    del grads
+    arms = {}
+    for remat in (False, True):
+        cfg = base.replace(remat=remat)
+        state = create_state(cfg, seed=0, device="cuda")
+        step = build_train_step(cfg, cfg.dsteps, cfg.gsteps)
+        state, _ = step(state, batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            fail(f"remat={remat}: non-finite metrics")
+        arms["on" if remat else "off"] = dict(ms_per_macro_step=ms, peak_gib=peak)
+        del state, step
+        torch.cuda.empty_cache()
+    results["remat_160px"] = dict(worst_rel_err=worst, **arms)
+    log(f"remat at 160 px (celeba160 model flags, B 64, bf16): losses and gradients of the "
+        f"first critic and generator updates equal to {worst:.3g} of each tensor's largest "
+        f"entry (bound {REMAT_REL_TOL}); remat off {arms['off']['ms_per_macro_step']:.1f} ms "
+        f"per macro-step, peak {arms['off']['peak_gib']:.2f} GiB; remat on "
+        f"{arms['on']['ms_per_macro_step']:.1f} ms, peak {arms['on']['peak_gib']:.2f} GiB")
+
+
 def profile_only(results: dict) -> int:
     """The timed and profiled bf16 macro-steps of phases 3 and 4 alone."""
     import torch
@@ -1221,6 +1603,26 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trainer = run_trainer(tmp, results, tree)
 
+    # phase 6
+    t0 = time.perf_counter()
+    dcgan = run_dcgan(results)
+    log(f"dcgan phase: {time.perf_counter() - t0:.1f} s")
+
+    # phase 7
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        toy = run_toy(tmp, results)
+    log(f"toy phase: {time.perf_counter() - t0:.1f} s")
+
+    # phase 8
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        time_data_arms(tmp, results)
+        check_device_data_k_invariance(results)
+        check_device_data_resume(tmp, results, tree)
+    check_remat(results)
+    log(f"device data and remat phase: {time.perf_counter() - t0:.1f} s")
+
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
 
@@ -1258,9 +1660,14 @@ def main(argv=None) -> int:
              one_sweep=dict(ms=ts["stats2_bwd_ms"], plain_ms=ts["stats2_bwd_plain_ms"],
                             bound_ms=ts["stats2_bwd_bound_ms"])),
     ]
-    # launches on the training run of phase 5 (run A) beside the step's
+    # launches on the training run of phase 5 (run A), on the DCGAN steps
+    # of phase 6 (per macro-step) and on the toy run of phase 7, beside the
+    # flagship step's
     for kern, counter in zip(kernels, KERNEL_PARTS):
         kern["trainer_launches"] = trainer[counter]
+        kern["dcgan_launches_per_macro_step"] = {
+            label: n[counter] / (TIMED_STEPS + 1) for label, n in dcgan.items()}
+        kern["toy_launches"] = toy[counter]
     card = card_line()
     results.update(kernels=kernels, card=card)
     if args.out:

@@ -15,8 +15,9 @@ path here.
 package: a multi-shard config without a ``DataAxis`` never takes the
 fused kernels, and with one the ring estimators serve the losses.  The
 trainer (``smmdax_torch.trainer``) reads the scoring, scheduler and
-dispatch fields; it refuses ``num_data_shards > 1``, ``on_device_data``
-and ``data_placement="device"``, which are not ported yet.
+dispatch fields and the data placement; it refuses ``num_data_shards >
+1`` and a sharded device-resident pool, which are not ported yet.
+``remat`` runs the critic under activation checkpointing.
 """
 
 from __future__ import annotations

@@ -6,9 +6,11 @@ package draws them, so both packages train on byte-identical batches.
 The loaders read CIFAR-10 pickles, ImageNet-64 npz shards and MNIST idx
 files; without an asset the procedural ``SyntheticImages`` source with
 the same shapes stands in, with a printed note, as in the JAX package.
-The decoders of CelebA / LSUN images, LMDB environments, TFRecord shards
-and packed caches are not ported (ROADMAP A.14): when such an asset is
-present, ``make_dataset`` raises rather than train on synthetic data.
+``gaussian_mix`` is the 1-D toy (float32 samples, ``toy_dim`` ignored as
+in the JAX package).  The decoders of CelebA / LSUN images, LMDB
+environments, TFRecord shards and packed caches are not ported (ROADMAP:
+image readers): when such an asset is present, ``make_dataset`` raises
+rather than train on synthetic data.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Iterator, Optional, Protocol, Tuple
 import numpy as np
 
 from smmdax_torch.configs import Config
-from smmdax_torch.data.synthetic import SyntheticImages
+from smmdax_torch.data.synthetic import GaussianMix, SyntheticImages
 
 Array = np.ndarray
 
@@ -119,16 +121,14 @@ def _load_npz_images(data_dir: str, subdir: str, size: int) -> Optional[Array]:
 def _no_reader(cfg: Config, what: str):
     raise NotImplementedError(
         f"dataset {cfg.dataset!r}: {what} found under {cfg.data_dir}, but the "
-        "port has no reader for it yet (ROADMAP A.14); convert it to npz "
+        "port has no reader for it yet (ROADMAP: image readers); convert it to npz "
         "shards or train with the JAX package")
 
 
 def make_dataset(cfg: Config) -> DataSource:
     ds = cfg.dataset
     if ds == "gaussian_mix":
-        raise NotImplementedError(
-            "the gaussian_mix toy needs the mlp networks and viz.py, not "
-            "ported yet (ROADMAP A.11)")
+        return GaussianMix(seed=cfg.random_seed)
     if ds == "synthetic":
         return SyntheticImages(cfg.output_size, cfg.c_dim, seed=cfg.random_seed)
     if ds == "cifar10":

@@ -1,14 +1,38 @@
-"""Procedural image source (numpy copy of ``smmdax/data/synthetic.py``'s
-``SyntheticImages``): the same (seed, key) gives bit-identical batches
-in both packages."""
+"""Procedural data sources (numpy copies of ``smmdax/data/synthetic.py``):
+the 1-D ``GaussianMix`` toy and ``SyntheticImages``.  The same (seed, key)
+gives bit-identical batches in both packages."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 Array = np.ndarray
+
+
+class GaussianMix:
+    """1-D Gaussian mixture (means in [-0.8, 0.8], stddev 0.07): float32
+    samples (B, dim), inside the generator's tanh range."""
+
+    def __init__(self, means: Sequence[float] = (-0.8, -0.3, 0.3, 0.8),
+                 stddev: float = 0.07, dim: int = 1, seed: int = 0):
+        self.means = np.asarray(means, np.float32)
+        self.stddev = float(stddev)
+        self.dim = dim
+        self.seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def sample_shape(self) -> Tuple[int, ...]:
+        return (self.dim,)
+
+    def batch(self, n: int, key: Optional[int] = None) -> Array:
+        rng = self._rng if key is None else np.random.default_rng((self.seed, key))
+        comp = rng.integers(0, len(self.means), size=n)
+        x = self.means[comp][:, None] + self.stddev * rng.standard_normal(
+            (n, self.dim)).astype(np.float32)
+        return x.astype(np.float32)
 
 
 class SyntheticImages:

@@ -12,7 +12,7 @@ package's default ones.  With the same weights (``weights=``, e.g. from
 ``smmdax_torch.convert.random_conv_weights_from_jax``) the features, and
 so the scores, are equal.
 
-The Inception-v3 extractor is not ported yet (ROADMAP A.9): when its
+The Inception-v3 extractor is not ported yet (ROADMAP: Inception-v3): when its
 weights asset is present, ``get_feature_extractor`` raises instead of
 scoring with random features.
 """
@@ -160,6 +160,6 @@ def get_feature_extractor(data_dir: str = "./data", prefer_inception: bool = Tru
     if prefer_inception and path is not None:
         raise NotImplementedError(
             f"Inception weights found at {path}, but the port's Inception "
-            "extractor is not ported yet (ROADMAP A.9); move the asset away "
+            "extractor is not ported yet (ROADMAP: Inception-v3); move the asset away "
             "or pass prefer_inception=False to score with random conv features")
     return RandomConvFeatures(device=device)

@@ -8,8 +8,10 @@ interpolation weights ``eps`` of the gradient penalties.  Both returned
 losses are minimized.
 
 Estimators of sigma (``Config.scaling_grad_estimator``):
-``exact`` is ``torch.func.vmap(jacrev(...))`` over single samples;
-``sum`` and ``hutchinson`` are one ``torch.autograd.grad`` each.  With
+``exact`` is ``torch.func.vmap(jacrev(...))`` over single samples, or,
+with ``cfg.remat`` (a critic under ``torch.utils.checkpoint``, which
+``torch.func`` transforms refuse), one ``torch.autograd.grad`` per
+feature; ``sum`` and ``hutchinson`` are one ``torch.autograd.grad`` each.  With
 ``create_graph=True`` (the critic step) sigma stays differentiable in the
 critic's parameters: double backprop, as in the JAX package.
 
@@ -162,7 +164,17 @@ def sobolev_scale(cfg: Config, critic: Critic, real: Tensor,
     estimator.  ``create_graph=False`` gives a constant sigma (the
     generator step's stop-gradient)."""
     est = cfg.scaling_grad_estimator
-    if est == "exact":
+    if est == "exact" and cfg.remat:
+        # row k of every sample's Jacobian is d(sum_b f_b[k])/dx: the
+        # critic has no BatchNorm, so sample b's features depend on x_b only
+        x = _input(real)
+        f = critic(x)
+        grad_sq = 0.0
+        for k in range(f.shape[-1]):
+            g, = torch.autograd.grad(torch.sum(f[:, k]), x, create_graph=create_graph,
+                                     retain_graph=True)
+            grad_sq = grad_sq + _sum_except_batch(g)
+    elif est == "exact":
         def phi_single(x: Tensor) -> Tensor:
             return critic(x[None])[0]                   # (dof_dim,)
 

@@ -46,16 +46,21 @@ def main(argv=None) -> None:
     imgs_np = imgs.cpu().numpy()
     out = os.path.join(cfg.sample_dir, cfg.run_name())
     os.makedirs(out, exist_ok=True)
-    save_images(imgs_np[:64], os.path.join(out, "samples.png"))
-    np.save(os.path.join(out, "samples.npy"), imgs_np)
-    print(f"[smmdax_torch] wrote {n} samples to {out}")
-    if cfg.visualize:
-        # latent interpolation grid: each row walks z between two endpoints
-        grid = interpolate(cfg, state,
-                           torch.Generator(device=dev).manual_seed(cfg.random_seed + 1),
-                           rows=8, cols=8)
-        save_images(grid.cpu().numpy(), os.path.join(out, "interpolation.png"), nrow=8)
-        print(f"[smmdax_torch] wrote latent interpolation grid to {out}")
+    if cfg.dataset == "gaussian_mix":
+        # the toy's samples are 1-D points, not images
+        np.save(os.path.join(out, "samples.npy"), imgs_np)
+        print(f"[smmdax_torch] wrote {imgs_np.shape} samples to {out}/samples.npy")
+    else:
+        save_images(imgs_np[:64], os.path.join(out, "samples.png"))
+        np.save(os.path.join(out, "samples.npy"), imgs_np)
+        print(f"[smmdax_torch] wrote {n} samples to {out}")
+        if cfg.visualize:
+            # latent interpolation grid: each row walks z between two endpoints
+            grid = interpolate(cfg, state,
+                               torch.Generator(device=dev).manual_seed(cfg.random_seed + 1),
+                               rows=8, cols=8)
+            save_images(grid.cpu().numpy(), os.path.join(out, "interpolation.png"), nrow=8)
+            print(f"[smmdax_torch] wrote latent interpolation grid to {out}")
 
     if cfg.compute_scores:
         from smmdax_torch.data import make_dataset

@@ -1,8 +1,9 @@
 """Low-level layers: spectrally-normalized dense/conv, flax-style
 BatchNorm, and resampling helpers (port of ``smmdax/nn/layers.py``).
 
-Layouts inside the networks are NCHW; weights are torch's (out, in) and
-OIHW.  Semantics follow the flax modules exactly:
+Layouts inside the networks are NCHW; weights are torch's (out, in),
+OIHW and, for the transposed convolution, (in, out, H, W).  Semantics
+follow the flax modules exactly:
 
 * Spectral norm: ``u`` is a registered buffer.  EVERY forward runs
   ``sn_iters`` power-iteration steps from the stored ``u`` and divides
@@ -11,6 +12,12 @@ OIHW.  Semantics follow the flax modules exactly:
   and stays differentiable (twice) in the weight.
 * Under a bf16 ``dtype`` the parameters stay float32; the input and the
   normalised weight are cast to bf16 for the product.
+* Initial kernels are flax's ``glorot_uniform`` (the ResNet) or, with
+  ``stddev``, ``normal(stddev)`` (the DCGAN and MLP networks'
+  ``normal(0.02)``).
+* ``ConvTranspose`` is flax ``nn.ConvTranspose`` (4x4, stride 2, SAME),
+  which does not flip its kernel: the (in, out, H, W) weight is the HWIO
+  kernel flipped in H and W (``smmdax_torch.convert`` does it).
 * ``BatchNorm`` is flax ``nn.BatchNorm``: float32 statistics with
   var = E[x^2] - E[x]^2 clamped at 0, eps 1e-5, and running averages
   ``0.99 * old + 0.01 * batch`` of the mean and the BIASED variance
@@ -57,6 +64,26 @@ def glorot_uniform_(w: Tensor, fan_in: int, fan_out: int,
         return w.uniform_(-bound, bound, generator=generator)
 
 
+def _init_kernel(shape, fan_in: int, fan_out: int, stddev: Optional[float],
+                 generator: Optional[torch.Generator]) -> nn.Parameter:
+    """glorot_uniform, or normal(stddev) when ``stddev`` is given."""
+    w = torch.empty(shape)
+    if stddev is None:
+        return nn.Parameter(glorot_uniform_(w, fan_in, fan_out, generator))
+    with torch.no_grad():
+        return nn.Parameter(w.normal_(0.0, stddev, generator=generator))
+
+
+def _same_pad(kernel_size: int, stride: int, size: int) -> int:
+    """XLA's SAME padding of one side, for sizes where it is symmetric."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel_size - size, 0)
+    if total % 2:
+        raise ValueError(f"SAME padding of a {kernel_size}-wide kernel at stride "
+                         f"{stride} over {size} is asymmetric")
+    return total // 2
+
+
 class _SNMixin:
     """Spectral-norm machinery shared by SNDense and SNConv."""
 
@@ -87,12 +114,12 @@ class SNDense(nn.Module, _SNMixin):
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  use_sn: bool = False, sn_iters: int = 1,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, stddev: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(glorot_uniform_(
-            torch.empty(features, in_features), in_features, features, generator))
+        self.weight = _init_kernel((features, in_features), in_features, features,
+                                   stddev, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self._init_sn(features, use_sn, sn_iters, generator)
 
@@ -108,22 +135,25 @@ class SNDense(nn.Module, _SNMixin):
 
 
 class SNConv(nn.Module, _SNMixin):
-    """Stride-1 SAME 2-D convolution (NCHW, weight OIHW) with optional
-    spectral norm."""
+    """SAME 2-D convolution (NCHW, weight OIHW) with optional spectral
+    norm: stride 1 with an odd kernel, or a stride whose SAME padding is
+    symmetric at the input's size (the DCGAN critic's 4x4 / 2 on even
+    sizes)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, use_sn: bool = False, sn_iters: int = 1,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, stride: int = 1,
+                 stddev: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if kernel_size % 2 != 1:
-            raise ValueError("SAME padding here needs an odd kernel size")
+        if stride == 1 and kernel_size % 2 != 1:
+            raise ValueError("SAME padding at stride 1 needs an odd kernel size")
         self.dtype = dtype
-        self.padding = kernel_size // 2
+        self.kernel_size = kernel_size
+        self.stride = stride
         rf = kernel_size * kernel_size
-        self.weight = nn.Parameter(glorot_uniform_(
-            torch.empty(features, in_features, kernel_size, kernel_size),
-            in_features * rf, features * rf, generator))
+        self.weight = _init_kernel((features, in_features, kernel_size, kernel_size),
+                                   in_features * rf, features * rf, stddev, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self._init_sn(features, use_sn, sn_iters, generator)
 
@@ -132,11 +162,31 @@ class SNConv(nn.Module, _SNMixin):
         if self.dtype is not None:
             x = x.to(self.dtype)
             w = w.to(self.dtype)
-        y = F.conv2d(x, w, padding=self.padding)
+        pad = [_same_pad(self.kernel_size, self.stride, n) for n in x.shape[2:]]
+        y = F.conv2d(x, w, stride=self.stride, padding=pad)
         if self.bias is not None:
             b = self.bias.to(self.dtype) if self.dtype is not None else self.bias
             y = y + b[:, None, None]
         return y
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` at 4x4, stride 2, SAME (NCHW, weight (in,
+    out, H, W), normal(0.02) init): doubles H and W."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _init_kernel((in_features, features, 4, 4), 0, 0, 0.02, generator)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: Tensor) -> Tensor:
+        w, b = self.weight, self.bias
+        if self.dtype is not None:
+            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+        return F.conv_transpose2d(x, w, stride=2, padding=1) + b[:, None, None]
 
 
 class BatchNorm(nn.Module):

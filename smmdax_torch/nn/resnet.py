@@ -10,28 +10,17 @@ map name for name.
 
 from __future__ import annotations
 
-import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from smmdax_torch.kernels.kernels import at_least_f32
+from smmdax_torch.nn.dcgan import _base_and_blocks
 from smmdax_torch.nn.layers import (BatchNorm, SNConv, SNDense, avg_pool_2x,
                                     upsample_nearest)
 
 Tensor = torch.Tensor
-
-
-def _base_and_blocks(output_size: int) -> Tuple[int, int]:
-    """(base grid size, #stride-2 blocks) with base in {4, 5}; a copy of
-    ``smmdax.nn.dcgan._base_and_blocks``."""
-    for base in (4, 5, 3, 6, 7):
-        n = output_size / base
-        k = int(round(math.log2(n))) if n > 1 else 0
-        if base * (2 ** k) == output_size and k >= 1:
-            return base, k
-    raise ValueError(f"output_size {output_size} not reachable from a 3..7 base grid")
 
 
 def _gen_widths(gf_dim: int, n_up: int) -> List[int]:

@@ -33,8 +33,19 @@ takes the global macro-batch and hands each rank its block.
 
 ``dispatch_train_step`` is the single-device counterpart of JAX's
 ``jit_train_step``: k macro-steps per call on a (k, ...) batch stack, as
-the trainer dispatches them.  ``sample`` and ``interpolate`` generate in
-eval mode from the EMA weights, with their own ``torch.Generator``.
+the trainer dispatches them.  ``device_data_train_step`` and
+``on_device_train_step`` are those of ``jit_train_step_device_data`` and
+``jit_train_step_on_device``: each macro-step gathers its batch from a
+dataset resident on the device, or draws a uniform one there, from a
+stream that is a pure function of (``cfg.random_seed``, the step), so it
+is the same at any k and across a resume.  ``sample`` and
+``interpolate`` generate in eval mode from the EMA weights, with their
+own ``torch.Generator``.
+
+With ``cfg.remat`` the losses get the critic under activation
+checkpointing (``critic_fn``), the counterpart of ``jax.checkpoint`` in
+the JAX package's ``_critic_fn``: its activations are recomputed in the
+backward passes instead of kept.  It changes memory, not values.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from smmdax_torch.configs import Config
 from smmdax_torch.data.transforms import normalize_uint8
@@ -202,13 +214,29 @@ def _pmean_(tensors, axis: Optional[DataAxis]) -> None:
 
 def _ema_update(decay: float, shadow: Dict[str, Tensor],
                 live: Dict[str, Tensor]) -> None:
-    """shadow <- decay * shadow + (1 - decay) * live, in place."""
+    """shadow <- decay * shadow + (1 - decay) * live, in place (nothing
+    for a generator without BN statistics)."""
     keys = list(shadow)
+    if not keys:
+        return
     ema = [shadow[k] for k in keys]
     with torch.no_grad():
         torch._foreach_mul_(ema, decay)
         torch._foreach_add_(ema, torch._foreach_mul([live[k] for k in keys],
                                                     1.0 - decay))
+
+
+def critic_fn(cfg: Config, disc: nn.Module) -> Callable[[Tensor], Tensor]:
+    """The critic the losses call: ``disc`` itself, or with ``cfg.remat``
+    its forward under ``torch.utils.checkpoint`` (non-reentrant, which
+    composes with the create-graph backward of sigma and the penalties)."""
+    if not cfg.remat:
+        return disc
+
+    def critic(x: Tensor) -> Tensor:
+        return checkpoint(disc, x, use_reentrant=False)
+
+    return critic
 
 
 def _d_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
@@ -217,8 +245,8 @@ def _d_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
     with torch.no_grad():
         fake = _generate(state.gen, z, update_stats=False)
     _refresh_spectral(cfg, state.disc, real.device)
-    loss, aux = critic_loss(cfg, state.disc, real, fake, probe=probe, eps=eps,
-                            axis=axis)
+    loss, aux = critic_loss(cfg, critic_fn(cfg, state.disc), real, fake, probe=probe,
+                            eps=eps, axis=axis)
     grads = torch.autograd.grad(loss, list(state.disc.parameters()))
     _pmean_(grads, axis)
     _apply_update(cfg, state.disc, grads, state.d_opt, state.lr_d)
@@ -229,8 +257,8 @@ def _g_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
               probe: Optional[Tensor], axis: Optional[DataAxis] = None) -> LossAux:
     with _frozen(state.disc):
         fake = _generate(state.gen, z, update_stats=True)
-        loss, aux = generator_loss(cfg, state.disc, real, fake, probe=probe,
-                                   axis=axis)
+        loss, aux = generator_loss(cfg, critic_fn(cfg, state.disc), real, fake,
+                                   probe=probe, axis=axis)
         grads = torch.autograd.grad(loss, list(state.gen.parameters()))
     _pmean_(grads, axis)
     # each rank normalised with its own block's statistics; the running
@@ -395,20 +423,30 @@ def data_parallel_train_step(cfg: Config, dsteps: int, gsteps: int,
 
 def check_single_device(cfg: Config) -> None:
     """Raise for the execution modes of the JAX trainer that the port has
-    not ported yet."""
+    not ported yet: those over several ranks."""
     if cfg.num_data_shards > 1:
         raise NotImplementedError(
             f"num_data_shards={cfg.num_data_shards}: the trainer over several "
-            "ranks and the GSPMD-mode program are not ported yet (ROADMAP "
-            "A.12); data_parallel_train_step is the per-rank step")
-    if cfg.on_device_data:
+            "ranks and the GSPMD-mode program are not ported yet (ROADMAP: "
+            "several ranks); data_parallel_train_step is the per-rank step")
+    if cfg.data_placement == "device" and cfg.device_data_sharding == "sharded":
         raise NotImplementedError(
-            "on_device_data: batches drawn in the program are not ported yet "
-            "(ROADMAP A.7)")
-    if cfg.data_placement == "device":
-        raise NotImplementedError(
-            "data_placement='device': the device-resident dataset is not "
-            "ported yet (ROADMAP A.7)")
+            "device_data_sharding='sharded': a pool partitioned over ranks is "
+            "not ported yet (ROADMAP: several ranks); one device holds the "
+            "pool whole ('replicated')")
+
+
+def _repeat(step, k: int):
+    """``k`` calls of ``step`` per call, returning the last metrics."""
+    if k == 1:
+        return step
+
+    def multi(state: TrainState, *args):
+        for _ in range(k):
+            state, metrics = step(state, *args)
+        return state, metrics
+
+    return multi
 
 
 def dispatch_train_step(cfg: Config, dsteps: int, gsteps: int,
@@ -435,6 +473,81 @@ def dispatch_train_step(cfg: Config, dsteps: int, gsteps: int,
         return state, metrics
 
     return multi
+
+
+# tags of the two in-program data streams (JAX's fold-in constants)
+_POOL_TAG = 0x0DA7A0D1
+_SYNTH_TAG = 0x0DDDA7A
+
+
+def data_stream(cfg: Config, tag: int, step: int, device) -> torch.Generator:
+    """The generator of macro-step ``step``'s in-program data: seeded from
+    (``cfg.random_seed``, ``tag``, ``step``) alone, so the stream is the
+    same at any dispatch size and across a resume.  It is never
+    ``state.generator``, whose draws are the step's noise."""
+    seed = np.random.SeedSequence([cfg.random_seed, tag, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def batch_indices(generator: torch.Generator, pool_n: int, per_step: int,
+                  nb: int) -> Tensor:
+    """(per_step, nb) gather indices into a pool of ``pool_n``, without
+    replacement within each row (a duplicate inside one batch biases the
+    unbiased MMD^2 upward), on ``generator``'s device:
+
+    * the macro-step fits the pool: one permutation sliced into rows, so
+      no sample recurs in the whole macro-step;
+    * a macro-step larger than the pool: each row drawn on its own,
+      without replacement;
+    * a pool smaller than the batch: draws with replacement."""
+    dev = generator.device
+    if pool_n < nb:
+        return torch.randint(0, pool_n, (per_step, nb), generator=generator, device=dev)
+    if per_step * nb <= pool_n:
+        perm = torch.randperm(pool_n, generator=generator, device=dev)
+        return perm[:per_step * nb].reshape(per_step, nb)
+    keys = torch.rand((per_step, pool_n), generator=generator, device=dev)
+    return torch.sort(keys, dim=1, stable=True).indices[:, :nb]
+
+
+def device_data_train_step(cfg: Config, dsteps: int, gsteps: int,
+                           steps_per_dispatch: int = 1
+                           ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+    """The single-device counterpart of ``jit_train_step_device_data``:
+    ``step(state, pool) -> (state, metrics)``, with ``pool`` the whole
+    uint8 dataset (N, H, W, C) on the state's device.  Each of the k
+    macro-steps gathers its (dsteps + gsteps, real_batch_size) batch there
+    by ``batch_indices`` from its ``data_stream``."""
+    check_single_device(cfg)
+    step = build_train_step(cfg, dsteps, gsteps)
+    per_step = dsteps + gsteps
+
+    def data_step(state: TrainState, pool: Tensor):
+        if pool.device != state.device:
+            raise ValueError(f"the pool is on {pool.device}, the state on {state.device}")
+        g = data_stream(cfg, _POOL_TAG, state.step, state.device)
+        idx = batch_indices(g, pool.shape[0], per_step, cfg.real_batch_size)
+        return step(state, pool[idx])
+
+    return _repeat(data_step, steps_per_dispatch)
+
+
+def on_device_train_step(cfg: Config, dsteps: int, gsteps: int,
+                         steps_per_dispatch: int = 1
+                         ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+    """The single-device counterpart of ``jit_train_step_on_device``:
+    ``step(state) -> (state, metrics)``; each of the k macro-steps draws a
+    real batch uniform in [-1, 1] on the device from its ``data_stream``
+    (noise, not the dataset: a measurement and smoke-training mode)."""
+    check_single_device(cfg)
+    step = build_train_step(cfg, dsteps, gsteps)
+    shape = (dsteps + gsteps, cfg.real_batch_size) + cfg.image_shape
+
+    def synth_step(state: TrainState):
+        g = data_stream(cfg, _SYNTH_TAG, state.step, state.device)
+        return step(state, torch.rand(shape, generator=g, device=state.device) * 2.0 - 1.0)
+
+    return _repeat(synth_step, steps_per_dispatch)
 
 
 # ---------------------------------------------------------------------------

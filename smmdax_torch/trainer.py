@@ -8,7 +8,12 @@ As in the JAX package: ``start_dsteps`` critic updates for the first
 dispatch crosses an event (logging, samples, checkpoints, scoring, fixed
 LR decay, the warm-up switch, the profiler window, the end); a host thread
 assembling the next uint8 batches (a pure function of (seed, step)) while
-the device runs; preemption by SIGTERM / SIGINT checkpoints and stops.
+the device runs, or, with ``data_placement="device"``, the dataset
+uploaded once and gathered on the device (``on_device_data``: uniform
+batches drawn there), with no host thread; preemption by SIGTERM /
+SIGINT checkpoints and stops.  The gaussian_mix toy's batches stay
+float32, and its samples are frames of histograms and the witness
+function (``smmdax_torch.viz``).
 Scoring and the scheduler decisions are keyed by step, so a resumed run
 repeats an uninterrupted one's decisions.
 
@@ -32,14 +37,16 @@ import torch
 
 from smmdax_torch.checkpoint import CheckpointManager
 from smmdax_torch.configs import Config
-from smmdax_torch.data.pipeline import macro_batch_at, make_dataset
+from smmdax_torch.data.pipeline import macro_batch_at, make_dataset, materialize_u8
 from smmdax_torch.eval.features import extract_features, extract_with_probs, get_feature_extractor
 from smmdax_torch.eval.scores import (frechet_distance, gaussian_stats, inception_score,
                                       kid_from_features, relative_mmd_test,
                                       relative_similarity_test, use_device_scoring)
 from smmdax_torch.train import (TrainState, check_single_device, create_state,
-                                dispatch_train_step, resolve_device, sample)
+                                device_data_train_step, dispatch_train_step,
+                                on_device_train_step, resolve_device, sample)
 from smmdax_torch.utils import MetricWriter, StepTimer, save_images
+from smmdax_torch.viz import assemble_toy_animation, plot_toy_frame
 
 
 def _chunk_seed(seed: int, ci: int) -> int:
@@ -51,7 +58,7 @@ def _chunk_seed(seed: int, ci: int) -> int:
 class Trainer:
     """``Trainer(cfg, device="cuda").train()``.  Raises without a card
     unless ``device="cpu"``; refuses the execution modes not ported yet
-    (several ranks, in-program data)."""
+    (several ranks)."""
 
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
@@ -76,6 +83,7 @@ class Trainer:
                                    tensorboard=cfg.tensorboard)
         self._step_cache: Dict[tuple, callable] = {}
         self._extractor = None
+        self._dev_data: Optional[torch.Tensor] = None   # data_placement="device"
         # scoring feature sets: numpy on the CPU, tensors on the card
         self._real_feats = None
         self._real_stats: Optional[tuple] = None      # FID (mu, cov) of the real set
@@ -95,8 +103,13 @@ class Trainer:
         key = (dsteps, k)
         fn = self._step_cache.get(key)
         if fn is None:
-            fn = dispatch_train_step(self.cfg, dsteps, self.cfg.gsteps,
-                                     steps_per_dispatch=k)
+            if self.cfg.data_placement == "device":
+                build = device_data_train_step
+            elif self.cfg.on_device_data:
+                build = on_device_train_step
+            else:
+                build = dispatch_train_step
+            fn = build(self.cfg, dsteps, self.cfg.gsteps, steps_per_dispatch=k)
             self._step_cache[key] = fn
         return fn
 
@@ -286,7 +299,9 @@ class Trainer:
         if cfg.uint8_transfer and hasattr(self.source, "batch_u8"):
             return warm, macro_batch_at(self.source, s, per_step, cfg.real_batch_size, u8=True)
         batch = macro_batch_at(self.source, s, per_step, cfg.real_batch_size)
-        if cfg.uint8_transfer and batch.dtype == np.float32:
+        if cfg.uint8_transfer and batch.dtype == np.float32 and cfg.dataset != "gaussian_mix":
+            # images are 8-bit data: a quarter of the bytes to the device;
+            # the toy's 1-D samples are not images and stay float32
             batch = np.round((batch + 1.0) * 127.5).astype(np.uint8)
         return warm, batch
 
@@ -302,6 +317,18 @@ class Trainer:
         def _on_term(signum, frame):
             self._preempted = True
 
+        if cfg.data_placement == "device" and self._dev_data is None:
+            # the dataset crosses to the device once; every batch after is
+            # gathered there
+            arr = materialize_u8(self.source, cfg.device_data_pool)
+            if arr is None:
+                raise ValueError(
+                    f"data_placement=device needs an in-memory or pool-drawable "
+                    f"dataset; {type(self.source).__name__} offers neither")
+            self._dev_data = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+            print(f"[smmdax_torch] device-resident dataset: {arr.shape[0]} samples, "
+                  f"{arr.nbytes / 2**20:.0f} MB uploaded once", flush=True)
+
         try:
             old_term = signal.signal(signal.SIGTERM, _on_term)
             old_int = signal.signal(signal.SIGINT, _on_term)
@@ -309,9 +336,11 @@ class Trainer:
             old_term = old_int = None
 
         # a producer thread assembles the next macro-batches while the
-        # device runs; bounded, so a dispatch never waits on it once warm
+        # device runs; bounded, so a dispatch never waits on it once warm.
+        # In-program data needs none.
         q: "queue.Queue" = queue.Queue(maxsize=max(2, 2 * cfg.steps_per_dispatch))
         stop = threading.Event()
+        host_fed = not cfg.on_device_data and cfg.data_placement != "device"
 
         def _producer(start: int):
             s = start
@@ -325,13 +354,16 @@ class Trainer:
                         continue
                 s += 1
 
-        producer = threading.Thread(target=_producer, args=(step,), daemon=True)
-        producer.start()
+        producer = None
+        if host_fed:
+            producer = threading.Thread(target=_producer, args=(step,), daemon=True)
+            producer.start()
         try:
             self._train_loop(cfg, timer, step, q)
         finally:
             stop.set()
-            producer.join(timeout=5)
+            if producer is not None:
+                producer.join(timeout=5)
             if self._profiler is not None:
                 self._stop_profiler()
             if old_term is not None:
@@ -342,6 +374,10 @@ class Trainer:
             # the state is checkpointed: replace the process and resume
             print("[smmdax_torch] rss watchdog: re-exec to reclaim host memory")
             self._reexec()
+        if cfg.dataset == "gaussian_mix" and cfg.sample_every:
+            gif = assemble_toy_animation(os.path.join(cfg.sample_dir, cfg.run_name()))
+            if gif:
+                print(f"[smmdax_torch] toy animation: {gif}")
         return self.state
 
     def _train_loop(self, cfg: Config, timer: StepTimer, step: int, q) -> None:
@@ -352,21 +388,29 @@ class Trainer:
             # one dispatch = up to steps_per_dispatch macro-steps, never
             # crossing an event boundary
             k_eff = min(cfg.steps_per_dispatch, self._next_boundary(step) - step)
-            parts, warm = [], None
-            for i in range(k_eff):
-                # bounded: a producer killed by a data error fails here
-                s, (w, b) = q.get(timeout=600)
-                if s != step + i or (warm is not None and warm != w):
-                    raise RuntimeError(f"batch of step {s} (warm-up {w}) where "
-                                       f"step {step + i} (warm-up {warm}) was due")
-                warm = w
-                parts.append(b)
-            batch = parts[0] if k_eff == 1 else np.stack(parts)
+            if cfg.on_device_data or cfg.data_placement == "device":
+                # dispatches never cross the warm-up switch
+                warm = self._dsteps_at(step) != cfg.dsteps
+                # device placement: the resident pool is the batch
+                # argument; on_device_data: none
+                batch = self._dev_data
+            else:
+                parts, warm = [], None
+                for i in range(k_eff):
+                    # bounded: a producer killed by a data error fails here
+                    s, (w, b) = q.get(timeout=600)
+                    if s != step + i or (warm is not None and warm != w):
+                        raise RuntimeError(f"batch of step {s} (warm-up {w}) where "
+                                           f"step {step + i} (warm-up {warm}) was due")
+                    warm = w
+                    parts.append(b)
+                batch = parts[0] if k_eff == 1 else np.stack(parts)
             dsteps = cfg.start_dsteps if warm else cfg.dsteps
             step_fn = self._get_step(dsteps, k_eff)
             if cfg.profile_steps and step == cfg.profile_start:
                 self._start_profiler()
-            self.state, metrics = step_fn(self.state, batch)
+            self.state, metrics = (step_fn(self.state) if batch is None
+                                   else step_fn(self.state, batch))
             step += k_eff
             if self._profiler is not None and step == cfg.profile_start + cfg.profile_steps:
                 self._stop_profiler()
@@ -444,8 +488,27 @@ class Trainer:
         resumes from the checkpoint just written."""
         os.execv(sys.executable, [sys.executable] + sys.argv)
 
+    def toy_critic(self):
+        """The critic as ``viz`` calls it: samples (numpy or tensors) ->
+        features on the device, no gradient."""
+        disc, dev = self.state.disc, self.device
+
+        def critic(x):
+            with torch.no_grad():
+                return disc(torch.as_tensor(x, dtype=torch.float32, device=dev))
+
+        return critic
+
     def _save_samples(self, step: int) -> None:
-        out_dir = os.path.join(self.cfg.sample_dir, self.cfg.run_name())
+        cfg = self.cfg
+        out_dir = os.path.join(cfg.sample_dir, cfg.run_name())
+        if cfg.dataset == "gaussian_mix":
+            # toy: histograms and the witness function; the real samples'
+            # key lies off the step keys
+            fake = sample(cfg, self.state, self._generator(step), 2048).cpu().numpy()
+            real = self.source.batch(2048, key=2**31)
+            plot_toy_frame(cfg, self.toy_critic(), real, fake, step, out_dir)
+            return
         imgs = sample(self.cfg, self.state, self._generator(step), 64)
         save_images(imgs.cpu().numpy(), os.path.join(out_dir, f"sample_{step:07d}.png"))
 

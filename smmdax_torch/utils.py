@@ -84,7 +84,7 @@ class MetricWriter:
         if tensorboard:
             raise NotImplementedError(
                 "tensorboard=True: the port has no TensorBoard writer yet (it "
-                "needs one without TensorFlow, ROADMAP A.15); the JSONL log "
+                "needs one without TensorFlow, ROADMAP: a TensorBoard writer); the JSONL log "
                 "under log_dir holds every metric")
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{run_name}.jsonl")

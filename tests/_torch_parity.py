@@ -53,6 +53,15 @@ def port_state(tcfg: TConfig, jstate):
     return convert.state_from_jax(tcfg, jstate, device="cpu")
 
 
+def gain_critic(jstate, gain: float):
+    """The JAX state with every critic kernel multiplied by ``gain``.  The
+    DCGAN and MLP init, normal(0.02), gives critic features of 1e-4 to
+    1e-3, where MMD^2 and the witness are the float32 rounding of O(1)
+    kernel sums in either package; a gain puts them above it."""
+    scale = lambda path, v: v * gain if path[-1].key == "kernel" else v
+    return jstate.replace(d_params=jax.tree_util.tree_map_with_path(scale, jstate.d_params))
+
+
 class _Jnp64(types.ModuleType):
     """``jax.numpy`` with ``float32`` read as ``float64``."""
 
@@ -102,6 +111,29 @@ def check_grads_per_leaf(want, got, rtol=1e-6):
     for name in want:
         np.testing.assert_allclose(got[name], want[name], err_msg=name, rtol=rtol,
                                    atol=rtol * np.abs(want[name]).max() + floor)
+
+
+def jax_draws(jcfg, key, dsteps, gsteps):
+    """Every draw of smmdax.train's macro-step from the state key
+    (train.py:286, 189-191, 214-217; losses.py:348, 217-218, 262)."""
+    _, *step_rngs = jax.random.split(key, 1 + dsteps + gsteps)
+    b, dof = min(jcfg.batch_size, jcfg.real_batch_size), jcfg.dof_dim
+    z_shape = (jcfg.batch_size, jcfg.z_dim)
+    out = {"d_z": [], "d_probe": [], "d_eps": [], "g_z": [], "g_probe": []}
+    for r in step_rngs[:dsteps]:
+        rng_z, r = jax.random.split(r)
+        out["d_z"].append(jax.random.uniform(rng_z, z_shape, minval=-1.0, maxval=1.0))
+        if jcfg.with_scaling:
+            r, r_scale = jax.random.split(r)
+            out["d_probe"].append(jax.random.rademacher(r_scale, (dof,), dtype=jnp.float32))
+        if jcfg.gradient_penalty > 0:
+            out["d_eps"].append(jax.random.uniform(r, (b, 1, 1, 1)))
+    for r in step_rngs[dsteps:]:
+        rng_z, r_scale = jax.random.split(r)
+        out["g_z"].append(jax.random.uniform(rng_z, z_shape, minval=-1.0, maxval=1.0))
+        if jcfg.with_scaling:
+            out["g_probe"].append(jax.random.rademacher(r_scale, (dof,), dtype=jnp.float32))
+    return {k: np.stack([np.asarray(a) for a in v]) for k, v in out.items() if v}
 
 
 def rng(seed: int = 0) -> np.random.Generator:

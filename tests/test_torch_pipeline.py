@@ -79,10 +79,5 @@ def test_mnist_and_substitution(tmp_path, capsys):
 def test_unreadable_assets_raise(tmp_path, dataset, path):
     os.makedirs(os.path.dirname(tmp_path / path), exist_ok=True)
     (tmp_path / path).write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="A.14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: image readers"):
         tpipe.make_dataset(Config(dataset=dataset, data_dir=str(tmp_path)))
-
-
-def test_gaussian_mix_not_ported():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tpipe.make_dataset(Config(dataset="gaussian_mix", architecture="mlp"))

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import configs, jax_state, port_state, rng
+from _torch_parity import configs, jax_draws, jax_state, port_state, rng
 from smmdax import losses as jlosses
 from smmdax import train as jtrain
 from smmdax_torch import convert
@@ -51,29 +51,6 @@ MAX_LEFT_OUT = 0.1
 # at the smallest kept entries; a skipped step would still be 5x over.
 G_CHANGE_TOL, D_CHANGE_TOL = 0.1, 0.2
 STATS_CHANGE_ATOL = 1e-7
-
-
-def jax_draws(jcfg, key, dsteps, gsteps):
-    """Every draw of smmdax.train's macro-step from the state key
-    (train.py:286, 189-191, 214-217; losses.py:348, 217-218, 262)."""
-    _, *step_rngs = jax.random.split(key, 1 + dsteps + gsteps)
-    b, dof = min(jcfg.batch_size, jcfg.real_batch_size), jcfg.dof_dim
-    z_shape = (jcfg.batch_size, jcfg.z_dim)
-    out = {"d_z": [], "d_probe": [], "d_eps": [], "g_z": [], "g_probe": []}
-    for r in step_rngs[:dsteps]:
-        rng_z, r = jax.random.split(r)
-        out["d_z"].append(jax.random.uniform(rng_z, z_shape, minval=-1.0, maxval=1.0))
-        if jcfg.with_scaling:
-            r, r_scale = jax.random.split(r)
-            out["d_probe"].append(jax.random.rademacher(r_scale, (dof,), dtype=jnp.float32))
-        if jcfg.gradient_penalty > 0:
-            out["d_eps"].append(jax.random.uniform(r, (b, 1, 1, 1)))
-    for r in step_rngs[dsteps:]:
-        rng_z, r_scale = jax.random.split(r)
-        out["g_z"].append(jax.random.uniform(rng_z, z_shape, minval=-1.0, maxval=1.0))
-        if jcfg.with_scaling:
-            out["g_probe"].append(jax.random.rademacher(r_scale, (dof,), dtype=jnp.float32))
-    return {k: np.stack([np.asarray(a) for a in v]) for k, v in out.items() if v}
 
 
 def _first_critic_grads(jcfg, js, real, z):

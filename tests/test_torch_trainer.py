@@ -141,9 +141,10 @@ def test_dispatch_is_k_single_steps():
         dispatch_train_step(cfg, 1, 1, steps_per_dispatch=3)(a, reals[:2])
 
 
-@pytest.mark.parametrize("bad, roadmap", [(dict(num_data_shards=2), "A.12"),
-                                          (dict(on_device_data=True), "A.7"),
-                                          (dict(data_placement="device"), "A.7")])
+@pytest.mark.parametrize("bad, roadmap", [
+    (dict(num_data_shards=2), "ROADMAP: several ranks"),
+    (dict(num_data_shards=2, on_device_data=True), "ROADMAP: several ranks"),
+    (dict(data_placement="device", device_data_sharding="sharded"), "ROADMAP: several ranks")])
 def test_unported_modes_raise(tmp_path, bad, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
         Trainer(_cfg(tmp_path, **bad), device="cpu")
