@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --tree DIR --only profile
+    python3 chip_smoke.py --only ranks
 
 (The second form profiles the bf16 steps of phases 3 and 4 of the
 ``smmdax_torch`` in DIR, e.g. an earlier commit unpacked by ``git
-archive``, to compare its kernels' device time with this tree's.)
+archive``, to compare its kernels' device time with this tree's.  The
+third runs phase 9 alone.)
 
 Phases, each fatal on failure:
 
@@ -68,7 +70,26 @@ Phases, each fatal on failure:
    to the straight one; and one macro-step at
    ``exp/celeba160_sn_smmd_resnet.sh``'s model flags on synthetic 160 px
    data with remat off and on: the critic's and the generator's gradients
-   equal to rel 1e-6, peak device memory and ms per macro-step of each.
+   equal to rel 1e-6, peak device memory and ms per macro-step of each;
+9. two ranks, one per card over NCCL with two or more cards, else both on
+   cuda:0 over gloo through a ``DataAxis`` of this script that stages
+   every collective through the host (which collectives gloo carries on
+   CUDA tensors itself is printed): (a) two GSPMD macro-steps of the
+   flagship at B 64 per rank against one device at B 128 on the same
+   batches and draws, at float32 and bf16, the ranks' states equal bit
+   for bit; at float32 the metrics (rtol 2e-3 / atol 2e-5) and every
+   tensor of the critic and the generator, BN running statistics
+   included (rtol 5e-3 / atol 1e-4 in L2 form), each widened by 3x the
+   farthest of three row-permuted one-device runs, and the same gate must
+   refuse two known-wrong steps (per-rank BatchNorm statistics, and that
+   with a per-rank MMD); (b) ``exp/imagenet64_sn_smmd_
+   multichip.sh``'s flags at 2 ranks (ring, K 4) on synthetic 64 px data
+   through the trainer, cut to 16 macro-steps with a checkpoint, scoring
+   and the scheduler inside, only rank 0 writing, and a run resumed from
+   8 in fresh processes equal bit for bit; (c) the sharded device pool,
+   K=1 and K=4 bit for bit; (d) ms per macro-step and images/s of the
+   GSPMD and ring steps at 2 ranks against one rank at B 128, with the
+   launches per macro-step, and rank 0's device busy and collective time.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -650,9 +671,13 @@ def profile_steps(step, state, batches, results: dict) -> None:
     # the profiler's own cost swells the profiled wall time, so the busy
     # share is taken against the unprofiled step time measured before
     share = busy / 2e3 / results["ms_per_macro_step"]
+    # collectives: NCCL's kernels, and the host copies of a staged group
+    coll = sum(e.self_device_time_total for e in events
+               if "nccl" in e.key.lower() or "memcpy" in e.key.lower())
     results["profile"] = dict(wall_ms_per_macro_step=wall_us / 1e3 / 2,
                               device_busy_ms_per_macro_step=busy / 1e3 / 2,
                               device_busy_share_of_step=share,
+                              collective_ms_per_macro_step=coll / 1e3 / 2,
                               kernels_per_macro_step=sum(e.count for e in events) / 2,
                               top=rows)
     log(f"profile (2 macro-steps): device busy {busy / 2e3:.2f} ms per macro-step, "
@@ -1481,6 +1506,632 @@ def check_remat(results: dict) -> None:
         f"{arms['on']['ms_per_macro_step']:.1f} ms, peak {arms['on']['peak_gib']:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: several ranks at full width
+
+
+RANKS = 2
+RANK_TIMED_STEPS = 5
+RANK_GROUP_TIMEOUT_S = 600
+# exp/imagenet64_sn_smmd_multichip.sh at NCHIPS=2 (B 64 per rank).  The
+# repo holds no ImageNet-64 npz, so the dataset falls back to the
+# procedural source of the same shape (64 px)
+MULTICHIP_FLAGS = [
+    "--is_train", "true", "--dataset", "imagenet64", "--architecture", "resnet",
+    "--model", "sn-smmd", "--kernel", "rq", "--batch_size", "128",
+    "--real_batch_size", "128", "--output_size", "64", "--dof_dim", "16",
+    "--num_data_shards", "2", "--use_ring_mmd", "true", "--learning_rate", "1e-4",
+    "--dsteps", "5", "--scaling_coeff", "10.0", "--max_iteration", "150000",
+    "--MMD_lr_scheduler", "true", "--compute_scores", "true", "--score_every", "5000",
+    "--compute_dtype", "bfloat16", "--scaling_grad_estimator", "hutchinson",
+    "--steps_per_dispatch", "4", "--ema_decay", "0.9999"]
+MULTICHIP_CUT_FLAGS = [
+    "--max_iteration", "16", "--warmup_iterations", "4", "--log_every", "4",
+    "--sample_every", "8", "--checkpoint_every", "8", "--score_every", "8",
+    "--no_of_samples", "2048", "--score_subsets", "10", "--scheduler_test_size", "1000",
+    "--scheduler_patience", "1"]
+# (a): 8 shards against one device in tests/test_train.py:87-92
+GSPMD_METRIC_RTOL, GSPMD_METRIC_ATOL = 2e-3, 2e-5
+GSPMD_PARAM_RTOL, GSPMD_PARAM_ATOL = 5e-3, 1e-4
+# the float32 floor of (a): one device's own runs with the batch rows in
+# FLOOR_RUNS other orders; 2 ranks may lie FLOOR_FACTOR times as far from
+# one device as the farthest of them (after 10 critic updates the critic's
+# outputs of such runs lie ~1% apart: Adam turns float32 summation-order
+# noise in near-zero gradients into +-lr steps)
+FLOOR_RUNS, FLOOR_FACTOR = 3, 3
+# steps that the gate of (a) must refuse, each run like the GSPMD step on
+# the ranks' rows of the same draws: shard_map mode, where BatchNorm takes
+# each rank's own statistics; and that with each rank's own MMD estimator
+WRONG_ARMS = {"per-rank BN": dict(dp_mode="shard_map"),
+              "per-rank BN and MMD": dict(dp_mode="shard_map", global_batch_mmd=False)}
+
+
+def gspmd_config(dtype: str):
+    """The flagship at B 64 per rank over RANKS ranks, GSPMD mode."""
+    return flagship_config(dtype).replace(batch_size=64 * RANKS,
+                                          real_batch_size=64 * RANKS,
+                                          num_data_shards=RANKS)
+
+
+def multichip_config(run_dir=None, max_iteration: int = 16):
+    """The multichip script's flags, cut to ``max_iteration`` macro-steps
+    with a checkpoint, scoring and the scheduler inside; relative
+    directories without ``run_dir``."""
+    from smmdax_torch.configs import config_from_args
+    dirs = [x for d in ("checkpoint", "log", "sample")
+            for x in (f"--{d}_dir", d if run_dir is None else os.path.join(run_dir, d))]
+    return config_from_args(MULTICHIP_FLAGS + MULTICHIP_CUT_FLAGS + dirs
+                            + ["--max_iteration", str(max_iteration)])
+
+
+def _digest(state) -> str:
+    """sha256 of every tensor and number of a train state."""
+    import hashlib
+    import torch
+    from smmdax_torch import checkpoint
+    h = hashlib.sha256()
+
+    def walk(x, where):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{where}/{k}")
+        elif isinstance(x, torch.Tensor):
+            h.update(where.encode() + x.detach().cpu().reshape(-1).view(torch.uint8)
+                     .numpy().tobytes())
+        else:
+            h.update(f"{where}={x!r}".encode())
+
+    walk(checkpoint.state_dict(state), "")
+    return h.hexdigest()
+
+
+def _zero_launches():
+    from smmdax_torch.cuda import mmd_kernel as mk
+    counters = mk.kernel_launch_counters()
+    for k in counters:
+        k.launches = 0
+    return counters
+
+
+def _rank_probe(axis, job, rank) -> dict:
+    """Which collectives gloo carries on CUDA tensors itself (the
+    ``DataAxis`` stages them all through the host either way, the ring's
+    point-to-point shift included, which is not probed: a one-sided
+    failure there would leave the other rank waiting)."""
+    import torch
+    import torch.distributed as dist
+    x = torch.full((4,), float(rank + 1), device=axis.device)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(axis.size)], x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+    }
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize(axis.device)
+            out[name] = "native"
+        except Exception as e:          # noqa: BLE001 - recorded, not fatal
+            out[name] = f"not carried: {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    axis.barrier()
+    return out
+
+
+def _rank_timing(cfg, axis, rank, label) -> dict:
+    """The per-rank step (``dispatch_train_step``, this rank's block of
+    each batch, as the trainer feeds it) over RANK_TIMED_STEPS macro-steps
+    after one warm-up, with the launch counters set to 0 before and read
+    after; then a profile of two more on rank 0."""
+    import torch
+    from smmdax_torch.data import SyntheticImages, macro_batch_at
+    from smmdax_torch.train import create_state, dispatch_train_step
+    state = create_state(cfg, seed=0, device=axis.device,
+                         rank=rank if cfg.dp_mode == "shard_map" else 0)
+    step = dispatch_train_step(cfg, cfg.dsteps, cfg.gsteps, 1, axis)
+    src = SyntheticImages(size=cfg.output_size, channels=cfg.c_dim, seed=cfg.random_seed)
+    per_step = cfg.dsteps + cfg.gsteps
+    batches = [macro_batch_at(src, s, per_step, cfg.real_batch_size, u8=True,
+                              block=(rank, axis.size))
+               for s in range(RANK_TIMED_STEPS + 3)]
+    counters = _zero_launches()
+    for s in range(RANK_TIMED_STEPS + 1):
+        if s == 1:
+            torch.cuda.synchronize(axis.device)
+            axis.barrier()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batches[s])
+    torch.cuda.synchronize(axis.device)
+    dt = (time.perf_counter() - t0) / RANK_TIMED_STEPS
+    launches = {k.__name__: k.launches for k in counters}
+    values = {k: float(v) for k, v in metrics.items()}
+    # images/s of the group: the global batch (batch_size is global)
+    out = dict(ms_per_macro_step=dt * 1e3,
+               images_per_s=per_step * cfg.batch_size / dt,
+               launches=dict(launches, macro_steps=RANK_TIMED_STEPS + 1), metrics=values)
+    if rank == 0:
+        profile_steps(step, state, batches[RANK_TIMED_STEPS + 1:], out)
+    else:
+        for real in batches[RANK_TIMED_STEPS + 1:]:
+            state, _ = step(state, real)
+        torch.cuda.synchronize(axis.device)
+    return out
+
+
+def _rank_rows(noise: dict, axis) -> dict:
+    """This rank's rows of the global latents (the probe whole): the draws
+    a shard_map rank takes in the known-wrong arms, so that they differ
+    from the GSPMD step in their statistics alone."""
+    b = noise["d_z"].shape[1] // axis.size
+    return {k: v[:, axis.index * b:(axis.index + 1) * b] if k in ("d_z", "g_z") else v
+            for k, v in noise.items()}
+
+
+def _rank_gspmd(axis, job, rank) -> dict:
+    """(a) two GSPMD macro-steps on the global batches and draws of the
+    one-device reference, at float32 and bf16, and the known-wrong arms
+    of ``WRONG_ARMS`` at float32; then (d) the bf16 step timed."""
+    import torch
+    from smmdax_torch import checkpoint
+    from smmdax_torch.train import create_state, data_parallel_train_step
+    out = {}
+    arms = [("float32", None), ("bfloat16", None)] + [("float32", w) for w in WRONG_ARMS]
+    for dtype, wrong in arms:
+        cfg = gspmd_config(dtype).replace(**WRONG_ARMS.get(wrong, {}))
+        state = create_state(cfg, seed=0, device=axis.device)
+        step = data_parallel_train_step(cfg, cfg.dsteps, cfg.gsteps, axis)
+        counters = _zero_launches()
+        metrics = []
+        for real, noise in zip(job["gspmd_reals"], job["gspmd_noise"][dtype]):
+            noise = {k: v.to(axis.device) for k, v in noise.items()}
+            state, m = step(state, real, noise=_rank_rows(noise, axis) if wrong else noise)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize(axis.device)
+        arm = dict(metrics=metrics, digest=_digest(state),
+                   launches={k.__name__: k.launches for k in counters})
+        if dtype == "float32" and rank == 0:
+            arm["state_path"] = os.path.join(job["out"], f"gspmd_f32_{wrong or 'gspmd'}.pt")
+            torch.save(checkpoint.state_dict(state), arm["state_path"])
+        out[wrong or dtype] = arm
+        del state
+    out["timing"] = _rank_timing(gspmd_config("bfloat16"), axis, rank, "gspmd")
+    return out
+
+
+def _rank_ring(axis, job, rank) -> dict:
+    """(d) the multichip config's per-rank ring step timed."""
+    return _rank_timing(multichip_config(), axis, rank, "ring")
+
+
+def _rank_pool(axis, job, rank) -> dict:
+    """(c) the sharded device pool: K=1 and K=4 over 4 macro-steps."""
+    import torch
+    from smmdax_torch.data import SyntheticImages, materialize_u8
+    from smmdax_torch.train import create_state, device_data_train_step
+    cfg = flagship_config("bfloat16").replace(
+        batch_size=64 * RANKS, real_batch_size=64 * RANKS, num_data_shards=RANKS,
+        data_placement="device", device_data_sharding="sharded")
+    src = SyntheticImages(size=32, channels=3, seed=cfg.random_seed)
+    pool = torch.from_numpy(materialize_u8(src, 4097, block=(rank, axis.size))).to(axis.device)
+    digests = []
+    counters = _zero_launches()
+    with deterministic_torch():
+        for k in (1, 4):
+            step = device_data_train_step(cfg, cfg.dsteps, cfg.gsteps, k, axis)
+            state = create_state(cfg, seed=0, device=axis.device)
+            for _ in range(4 // k):
+                state, _ = step(state, pool)
+            torch.cuda.synchronize(axis.device)
+            digests.append(_digest(state))
+    return dict(pool_rows=int(pool.shape[0]), digests=digests,
+                launches={k.__name__: k.launches for k in counters})
+
+
+def _rank_trainer(cfg, axis, rank) -> tuple:
+    from smmdax_torch.trainer import Trainer
+    with deterministic_torch():
+        trainer = Trainer(cfg, device=axis.device, axis=axis)
+        resumed_at = trainer.state.step
+        state = trainer.train()
+    return trainer, state, resumed_at
+
+
+def _files_under(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def _rank_trainer_a(axis, job, rank) -> dict:
+    """(b) the straight run, in a working directory of this rank's own
+    with relative directories: only rank 0's may fill."""
+    import torch
+    from smmdax_torch import checkpoint
+    cwd = os.path.join(job["out"], "cwd", f"rank{rank}")
+    os.makedirs(cwd)
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        counters = _zero_launches()
+        t0 = time.perf_counter()
+        trainer, state, _ = _rank_trainer(multichip_config(), axis, rank)
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in counters}
+        rows = _log_rows(trainer) if rank == 0 else None
+    finally:
+        os.chdir(here)
+    torch.save(checkpoint.state_dict(state), os.path.join(job["out"], f"A_rank{rank}.pt"))
+    return dict(wall_s=wall, launches=launches, rows=rows, files=_files_under(cwd))
+
+
+def _rank_trainer_b(axis, job, rank) -> dict:
+    _rank_trainer(multichip_config(os.path.join(job["out"], "B"), 8), axis, rank)
+    return {}
+
+
+def _rank_resume(axis, job, rank) -> dict:
+    """(b) run B resumed from its step-8 checkpoint in fresh processes."""
+    import torch
+    from smmdax_torch import checkpoint
+    cfg = multichip_config(os.path.join(job["out"], "B"), 16)
+    trainer, state, resumed_at = _rank_trainer(cfg, axis, rank)
+    torch.save(checkpoint.state_dict(state), os.path.join(job["out"], f"B_rank{rank}.pt"))
+    return dict(resumed_at=resumed_at, rows=_log_rows(trainer) if rank == 0 else None)
+
+
+RANK_PARTS = {"probe": _rank_probe, "gspmd": _rank_gspmd, "ring": _rank_ring,
+              "pool": _rank_pool, "trainer_a": _rank_trainer_a,
+              "trainer_b": _rank_trainer_b, "resume": _rank_resume}
+
+
+def _staged_axis(rank: int, world: int, store: str):
+    """Rank ``rank`` on cuda:0 over a gloo group (NCCL refuses two ranks on
+    one device): a ``DataAxis`` whose collectives carry each tensor
+    through the host.  Only this script puts two ranks on one card; the
+    port's own groups are NCCL on the card and gloo on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from smmdax_torch.parallel import DataAxis
+
+    class StagedAxis(DataAxis):
+        def _all_reduce(self, x):
+            return super()._all_reduce(x.detach().cpu()).to(x.device)
+
+        def _all_gather(self, x):
+            return super()._all_gather(x.detach().cpu()).to(x.device)
+
+        def _shift(self, x, step):
+            return super()._shift(x.detach().cpu(), step).to(x.device)
+
+    torch.cuda.set_device("cuda:0")
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    return StagedAxis("cuda:0")
+
+
+def _rank_worker(rank: int, world: int, transport: str, store: str, job_path: str) -> None:
+    """One rank of phase 9: join the group (NCCL on cuda:<rank>, or gloo
+    with both ranks on cuda:0) and run the job's parts in order."""
+    import traceback
+    import torch
+    job = torch.load(job_path, weights_only=False)
+    sys.path.insert(0, job["tree"])
+    from smmdax_torch.parallel import init_data_axis
+    # a spawned process starts with PyTorch's defaults (cuDNN in TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        axis = (init_data_axis(f"cuda:{rank}", rank, world, store) if transport == "nccl"
+                else _staged_axis(rank, world, store))
+        try:
+            for part in job["parts"]:
+                t0 = time.perf_counter()
+                out[part] = RANK_PARTS[part](axis, job, rank)
+                out[part + "_s"] = time.perf_counter() - t0
+        finally:
+            axis.close()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    torch.save(out, os.path.join(job["out"], f"{job['name']}_rank{rank}.pt"))
+    if "error" in out:
+        raise SystemExit(1)
+
+
+def _run_ranks(job: dict, transport: str) -> list:
+    """Run ``job`` on RANKS spawned ranks; their results in rank order."""
+    import torch
+    ctx = multiprocessing.get_context("spawn")
+    job_path = os.path.join(job["out"], f"{job['name']}.job.pt")
+    torch.save(job, job_path)
+    store = os.path.join(job["out"], f"{job['name']}.store")
+    procs = [ctx.Process(target=_rank_worker, args=(r, RANKS, transport, store, job_path))
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + RANK_GROUP_TIMEOUT_S
+    while any(p.exitcode is None for p in procs) and time.time() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.exitcode is None:
+            p.kill()
+        p.join()
+    outs = []
+    for r in range(RANKS):
+        path = os.path.join(job["out"], f"{job['name']}_rank{r}.pt")
+        res = torch.load(path, weights_only=False) if os.path.exists(path) else None
+        if res is None or "error" in res:
+            fail(f"ranks ({job['name']}): rank {r} exited {procs[r].exitcode}:\n"
+                 + (res["error"] if res else "no result"))
+        outs.append(res)
+    return outs
+
+
+def _one_device_gspmd_reference(results: dict):
+    """The one-device step at the global batch (B 128): two macro-steps,
+    with the draws it makes, at float32 and bf16; then its bf16 step
+    timed."""
+    import torch
+    from smmdax_torch import checkpoint
+    from smmdax_torch.data import SyntheticImages, macro_batch_at
+    from smmdax_torch.train import build_train_step, create_state, draw_noise
+    cfg32 = gspmd_config("float32").replace(num_data_shards=1)
+    src = SyntheticImages(size=32, channels=3, seed=cfg32.random_seed)
+    reals = [torch.from_numpy(macro_batch_at(src, 100 + s, 6, cfg32.real_batch_size, u8=True))
+             for s in range(2)]
+    noise, ref = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = gspmd_config(dtype).replace(num_data_shards=1)
+        state = create_state(cfg, seed=0, device="cuda")
+        step = build_train_step(cfg, cfg.dsteps, cfg.gsteps)
+        noise[dtype], metrics = [], []
+        for real in reals:
+            n = draw_noise(cfg, state, cfg.dsteps, cfg.gsteps)
+            noise[dtype].append({k: v.cpu() for k, v in n.items()})
+            state, m = step(state, real, noise=n)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        ref[dtype] = dict(metrics=metrics, state=checkpoint.state_dict(state)
+                          if dtype == "float32" else None)
+    # the float32 floor: the same steps with the rows of every batch and of
+    # the latents in other orders, which changes the float32 summation
+    # order and nothing else (every statistic is symmetric in the rows)
+    cfg = gspmd_config("float32").replace(num_data_shards=1)
+    step = build_train_step(cfg, cfg.dsteps, cfg.gsteps)
+    ref["permuted"] = []
+    for i in range(FLOOR_RUNS):
+        perm = torch.randperm(cfg.batch_size, generator=torch.Generator().manual_seed(5 + i))
+        state = create_state(cfg, seed=0, device="cuda")
+        metrics = []
+        for real, n in zip(reals, noise["float32"]):
+            n = {k: (v[:, perm] if k in ("d_z", "g_z") else v).cuda() for k, v in n.items()}
+            state, m = step(state, real[:, perm], noise=n)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        ref["permuted"].append(dict(metrics=metrics, state=checkpoint.state_dict(state)))
+        del state
+    run_slice(gspmd_config("bfloat16").replace(num_data_shards=1), RANK_TIMED_STEPS,
+              "1 rank gspmd bf16 B128", results, ("pair_sum", "pair_sum_grad_a"))
+    mc = multichip_config().replace(num_data_shards=1, use_ring_mmd=False)
+    run_slice(mc, RANK_TIMED_STEPS, "1 rank multichip bf16 B128", results,
+              ("pair_sum", "pair_sum_grad_a"))
+    return reals, noise, ref
+
+
+def _zero_grad_entry(module: str, name: str) -> bool:
+    """Entries whose gradient is 0 in exact arithmetic, where Adam turns
+    float32 rounding into +-lr steps whose signs two summation orders do
+    not share: the critic head's bias (the losses see the features through
+    differences) and the bias of every generator block's convolution (a
+    per-channel constant that the BatchNorm after it removes)."""
+    if module == "gen":
+        return name.startswith("block") and name.endswith(".bias")
+    return name == "head.bias"
+
+
+def _gspmd_gate(metrics: list, got: dict, ref: dict) -> tuple:
+    """Hold a 2-rank float32 run (each macro-step's metrics, the final
+    state dict) to one device's.  Every metric within rtol 2e-3 / atol
+    2e-5, and every tensor of the critic and the generator, parameters and
+    buffers (BN running statistics, SN vectors), in L2 form within rtol
+    5e-3 / atol 1e-4 (atol sqrt(n), rtol of the norm), each widened by
+    FLOOR_FACTOR times the farthest of one device's row-permuted runs.
+    ``critic_real`` and ``critic_fake`` are held as their difference, and
+    the entries of ``_zero_grad_entry`` are not held: each mean carries
+    the sum of the head's bias.  Returns (failures, {name: (distance,
+    tolerance, floor)})."""
+    import torch
+    bad, seen = [], {}
+    gap = lambda m: dict(m, critic_gap=m["critic_real"] - m["critic_fake"])  # noqa: E731
+    for s, (got_m, want_m) in enumerate(zip(metrics, ref["float32"]["metrics"])):
+        got_m, want_m = gap(got_m), gap(want_m)
+        floors = [gap(p["metrics"][s]) for p in ref["permuted"]]
+        for k, w in want_m.items():
+            if k in ("critic_real", "critic_fake"):
+                continue
+            g, floor = got_m[k], max(abs(f[k] - w) for f in floors)
+            tol = GSPMD_METRIC_ATOL + GSPMD_METRIC_RTOL * abs(w)
+            seen[f"step {s + 1} {k}"] = (abs(g - w), tol, floor)
+            if not abs(g - w) <= tol + FLOOR_FACTOR * floor:
+                bad.append(f"step {s + 1} {k}: {g} vs one device {w} (tolerance {tol}, its "
+                           f"row-permuted runs lie up to {floor} from it)")
+    want = ref["float32"]["state"]
+    for module in ("disc", "gen"):
+        for name, w in want[module].items():
+            if _zero_grad_entry(module, name) or not w.numel():
+                continue
+            g, w = got[module][name].float(), w.float()
+            dist = float(torch.linalg.vector_norm(g - w))
+            floor = max(float(torch.linalg.vector_norm(p["state"][module][name].float() - w))
+                        for p in ref["permuted"])
+            tol = (GSPMD_PARAM_ATOL * math.sqrt(w.numel())
+                   + GSPMD_PARAM_RTOL * float(torch.linalg.vector_norm(w)))
+            seen[f"{module}.{name}"] = (dist, tol, floor)
+            if not dist <= tol + FLOOR_FACTOR * floor:
+                bad.append(f"{module}.{name}: L2 distance {dist} from one device (tolerance "
+                           f"{tol}, its row-permuted runs lie up to {floor} from it)")
+    return bad, seen
+
+
+def _check_gspmd(ranks: list, ref: dict, results: dict) -> None:
+    import torch
+    out = {}
+    for arm in ("float32", "bfloat16") + tuple(WRONG_ARMS):
+        a, b = (r["gspmd"][arm] for r in ranks)
+        if a["digest"] != b["digest"]:
+            fail(f"gspmd {arm}: the two ranks' states differ")
+        if a["metrics"] != b["metrics"]:
+            fail(f"gspmd {arm}: the two ranks' metrics differ")
+        bad = [f"step {s + 1} {k} = {v}" for s, m in enumerate(a["metrics"])
+               for k, v in m.items() if not math.isfinite(v)]
+        if bad and arm in ("float32", "bfloat16"):
+            fail(f"gspmd {arm}: " + "; ".join(bad))
+        out[arm] = dict(metrics=a["metrics"], launches=a["launches"])
+    # bf16: printed against one device, not gated
+    rel = [(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30), k, g[k], w[k])
+           for g, w in zip(out["bfloat16"]["metrics"], ref["bfloat16"]["metrics"]) for k in w]
+    worst = max(rel)
+    out["bfloat16"].update(one_device=ref["bfloat16"]["metrics"], worst_metric_rel_err=worst[0],
+                           worst_metric=worst[1])
+    log(f"gspmd bfloat16: 2 ranks equal bit for bit; metrics of 2 macro-steps against one "
+        f"device at B 128 (not gated): worst rel err {worst[0]:.3g} ({worst[1]}: "
+        f"{worst[2]:.7g} vs {worst[3]:.7g}); launches {out['bfloat16']['launches']}")
+    # float32: the gate, then the same gate on each known-wrong arm
+    for arm in ("float32",) + tuple(WRONG_ARMS):
+        got = torch.load(ranks[0]["gspmd"][arm]["state_path"], weights_only=True)
+        bad, seen = _gspmd_gate(out[arm]["metrics"], got, ref)
+        far = max(seen.items(), key=lambda kv: kv[1][0] / (kv[1][1] + FLOOR_FACTOR * kv[1][2]))
+        out[arm].update(failures=bad, farthest=dict(name=far[0], distance=far[1][0],
+                                                    tolerance=far[1][1], floor=far[1][2]))
+        share = far[1][0] / (far[1][1] + FLOOR_FACTOR * far[1][2])
+        if arm == "float32":
+            if bad:
+                fail("gspmd f32 against one device: " + "; ".join(bad))
+            out[arm].update(one_device=ref["float32"]["metrics"],
+                            one_device_permuted=[p["metrics"] for p in ref["permuted"]],
+                            gated=dict(seen))
+            log(f"gspmd float32: 2 ranks equal bit for bit; {len(seen)} metrics and tensors "
+                f"(critic and generator, parameters and buffers) within the tolerance plus "
+                f"{FLOOR_FACTOR}x one device's {FLOOR_RUNS} row-permuted runs; the closest to "
+                f"its bound {far[0]} at {100 * share:.1f}% of it (distance {far[1][0]:.3g}, "
+                f"tolerance {far[1][1]:.3g}, floor {far[1][2]:.3g}); launches "
+                f"{out[arm]['launches']}")
+        else:
+            if not bad:
+                fail(f"gspmd f32 gate: the known-wrong arm '{arm}' passes it (farthest "
+                     f"{far[0]} at {100 * share:.1f}% of its bound)")
+            log(f"gspmd known-wrong arm '{arm}': fails the gate at {len(bad)} of "
+                f"{len(seen)} metrics and tensors, the farthest {far[0]} at "
+                f"{100 * share:.1f}% of its bound; first: {bad[0]}")
+    results["ranks_gspmd"] = out
+
+
+def run_ranks(tmp: str, results: dict, tree: str) -> dict:
+    """Phase 9 (see the module docstring).  Returns the launches per
+    macro-step of the timed 2-rank steps."""
+    import torch
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    transport = "nccl" if cards >= RANKS else "gloo"
+    where = ("one rank per card (NCCL)" if transport == "nccl" else
+             "both ranks on cuda:0 over gloo, every collective staged through the host "
+             "(NCCL refuses two ranks on one device)")
+    log(f"ranks: {RANKS} ranks, {where}")
+    reals, noise, ref = _one_device_gspmd_reference(results)
+    parts = (["probe"] if transport == "gloo" else []) + [
+        "gspmd", "ring", "pool", "trainer_a", "trainer_b"]
+    job = dict(name="g1", tree=tree, out=tmp, parts=parts, gspmd_reals=reals,
+               gspmd_noise=noise)
+    ranks = _run_ranks(job, transport)
+    if transport == "gloo":
+        log("ranks: gloo on CUDA tensors, natively: " + ", ".join(
+            f"{k} {v}" for k, v in ranks[0]["probe"].items()))
+    _check_gspmd(ranks, ref, results)
+
+    # (c)
+    pools = [r["pool"] for r in ranks]
+    for i, p in enumerate(pools):
+        if p["digests"][0] != p["digests"][1]:
+            fail(f"sharded pool: rank {i}'s K=1 and K=4 states differ")
+        if p["pool_rows"] != 4097 // RANKS:
+            fail(f"sharded pool: rank {i} holds {p['pool_rows']} rows")
+    if pools[0]["digests"][0] != pools[1]["digests"][0]:
+        fail("sharded pool: the two ranks' states differ")
+    log(f"sharded pool: 4097 samples cut to {RANKS} x {pools[0]['pool_rows']}; 4 flagship "
+        "macro-steps at K=1 and K=4 equal bit for bit on each rank, and across ranks")
+
+    # (b)
+    a = [r["trainer_a"] for r in ranks]
+    if a[1]["files"]:
+        fail(f"trainer over ranks: rank 1 wrote {a[1]['files'][:10]}")
+    cfg = multichip_config()
+    run = cfg.run_name()
+    want = {f"log/{run}.jsonl", f"checkpoint/{run}/16.pt", f"sample/{run}/sample_0000008.png"}
+    if not want <= set(a[0]["files"]):
+        fail(f"trainer over ranks: rank 0 wrote {a[0]['files']}")
+    rows = a[0]["rows"]
+    bad = [(r["step"], k) for r in rows for k, v in r.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"trainer over ranks: non-finite logged metrics {bad}")
+    scores = {r["step"]: r for r in rows if "kid" in r}
+    if sorted(scores) != [8, 16]:
+        fail(f"trainer over ranks: score rows at {sorted(scores)}")
+    missing = [k for k in ("pair_sum", "pair_sum_grad_a") if a[0]["launches"][k] == 0]
+    if missing:
+        fail(f"trainer over ranks: the run did not launch {missing}")
+    resumed = _run_ranks(dict(name="g2", tree=tree, out=tmp, parts=["resume"]), transport)
+    for i in range(RANKS):
+        if resumed[i]["resume"]["resumed_at"] != 8:
+            fail(f"trainer over ranks: rank {i} resumed at {resumed[i]['resume']['resumed_at']}")
+        diffs = _state_diffs(torch.load(os.path.join(tmp, f"A_rank{i}.pt"), weights_only=True),
+                             torch.load(os.path.join(tmp, f"B_rank{i}.pt"), weights_only=True))
+        if diffs:
+            fail(f"trainer over ranks: rank {i}'s resumed state differs at {diffs[:20]}")
+    score_b = next(r for r in resumed[0]["resume"]["rows"] if "kid" in r and r["step"] == 16)
+    drop = lambda r: {k: v for k, v in r.items() if k != "time"}
+    if drop(score_b) != drop(scores[16]):
+        fail(f"trainer over ranks: resumed step-16 scores {score_b} vs {scores[16]}")
+    log(f"trainer over ranks ({run}, {RANKS} ranks, ring, K 4): 16 macro-steps in "
+        f"{a[0]['wall_s']:.2f} s; scores at 8 KID {scores[8]['kid']:.5g} / FID "
+        f"{scores[8]['fid']:.5g}, at 16 {scores[16]['kid']:.5g} / {scores[16]['fid']:.5g}; "
+        f"launches {a[0]['launches']}; only rank 0 wrote files ({len(a[0]['files'])}); a run "
+        "stopped at 8 and resumed to 16 in fresh processes equals it bit for bit on both "
+        "ranks, scores included")
+
+    # (d)
+    card = card_line()
+    timing = {}
+    for label, one in (("gspmd", "1 rank gspmd bf16 B128"),
+                       ("ring", "1 rank multichip bf16 B128")):
+        t0, t1 = (r["gspmd"]["timing"] if label == "gspmd" else r["ring"] for r in ranks)
+        per = {k: v / t0["launches"]["macro_steps"] for k, v in t0["launches"].items()
+               if k != "macro_steps"}
+        if not (per["pair_sum"] and per["pair_sum_grad_a"]):
+            fail(f"2-rank {label}: the step did not launch the pair-sum kernels ({per})")
+        prof = t0["profile"]
+        # the group's step is its slower rank's
+        timing[label] = dict(
+            ms_per_macro_step=max(t0["ms_per_macro_step"], t1["ms_per_macro_step"]),
+            images_per_s=min(t0["images_per_s"], t1["images_per_s"]),
+            one_rank_ms_per_macro_step=results[one]["ms_per_macro_step"],
+            one_rank_images_per_s=results[one]["images_per_s"],
+            launches_per_macro_step=per, profile=prof, transport=transport, card=card)
+        log(f"2-rank {label} bf16 (B 64 per rank, {transport}): "
+            f"{timing[label]['ms_per_macro_step']:.2f} ms per macro-step, "
+            f"{timing[label]['images_per_s']:.1f} images/s, against one rank at B 128 "
+            f"{timing[label]['one_rank_ms_per_macro_step']:.2f} ms / "
+            f"{timing[label]['one_rank_images_per_s']:.1f} images/s; launches per macro-step "
+            + ", ".join(f"{k} {v:g}" for k, v in per.items())
+            + f"; rank 0 device busy {prof['device_busy_ms_per_macro_step']:.2f} ms "
+              f"({100 * prof['device_busy_share_of_step']:.1f}%), collectives "
+              f"{prof['collective_ms_per_macro_step']:.2f} ms; {card}")
+    results["ranks"] = dict(transport=transport, timing=timing, trainer_wall_s=a[0]["wall_s"],
+                            phase_s=time.perf_counter() - t_phase)
+    log(f"ranks phase: {time.perf_counter() - t_phase:.1f} s")
+    return timing
+
+
 def profile_only(results: dict) -> int:
     """The timed and profiled bf16 macro-steps of phases 3 and 4 alone."""
     import torch
@@ -1506,16 +2157,25 @@ def profile_only(results: dict) -> int:
     return 0
 
 
+def write_results(path, results: dict) -> None:
+    """All results as JSON at ``path`` (nothing for None)."""
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(results, f, indent=1)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="write all results as JSON here")
     parser.add_argument("--tree", default=HERE,
                         help="import smmdax_torch from this checkout (default: beside "
                              "this script), e.g. an earlier commit unpacked by git archive")
-    parser.add_argument("--only", choices=("profile",), default=None,
+    parser.add_argument("--only", choices=("profile", "ranks"), default=None,
                         help="profile: build, then only the timed and profiled bf16 "
                              "steps of phases 3 and 4; prints the launches and device "
-                             "us per launch of each csrc kernel, and no ok line")
+                             "us per launch of each csrc kernel, and no ok line; "
+                             "ranks: build, then phase 9 alone, and no ok line")
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
     # cuBLAS reads it when CUDA starts: phase 5 runs deterministic
@@ -1550,6 +2210,12 @@ def main(argv=None) -> int:
     results["build_s"] = secs
     if args.only == "profile":
         return profile_only(results)
+    if args.only == "ranks":
+        with tempfile.TemporaryDirectory() as tmp:
+            run_ranks(tmp, results, tree)
+        write_results(args.out, results)
+        print(card_line(), flush=True)
+        return 0
 
     # phase 2, 2b
     t0 = time.perf_counter()
@@ -1623,6 +2289,10 @@ def main(argv=None) -> int:
     check_remat(results)
     log(f"device data and remat phase: {time.perf_counter() - t0:.1f} s")
 
+    # phase 9
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(tmp, results, tree)
+
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
 
@@ -1668,12 +2338,15 @@ def main(argv=None) -> int:
         kern["dcgan_launches_per_macro_step"] = {
             label: n[counter] / (TIMED_STEPS + 1) for label, n in dcgan.items()}
         kern["toy_launches"] = toy[counter]
+        # phase 9: the 2-rank GSPMD and ring steps, per macro-step and rank
+        kern["two_rank_launches_per_macro_step"] = {
+            label: t["launches_per_macro_step"][counter] for label, t in ranks.items()}
+        kern["two_rank_device_us_per_launch"] = {
+            label: t["profile"]["csrc_device_us_per_launch"].get(counter)
+            for label, t in ranks.items()}
     card = card_line()
     results.update(kernels=kernels, card=card)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
+    write_results(args.out, results)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,14 @@ temporary name and renamed; the best directory is swapped through
 complete (state, meta) pair.  Saves are synchronous: the step mutates the
 state in place, so a save must finish before training continues.
 
+Over several ranks (``axis``) the state is replicated, so rank 0 alone
+writes each file, then every rank passes a barrier, and every rank
+restores from the same file.  One field is not replicated: in shard_map
+mode each rank draws its noise from a stream of its own, so a save
+gathers every rank's generator state into the file
+(``rank_generators``) and each rank resumes its own stream; a resume
+over ranks then continues the uninterrupted run bit for bit.
+
 Toggling the EMA across a resume keeps the JAX package's semantics: with
 the EMA on and no shadow in the checkpoint, the shadows start from the
 restored live weights and BN statistics; with the EMA off, saved shadows
@@ -33,6 +41,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from smmdax_torch.parallel.collectives import DataAxis
 from smmdax_torch.train import AdamState, TrainState
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
@@ -123,13 +132,43 @@ def _load_file(path: str) -> Dict[str, Any]:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    """Periodic and best-snapshot checkpoints under ``directory``.
+    ``axis``: the ranks of a run over several ranks (rank 0 writes);
+    ``rank_streams``: each rank has a noise stream of its own (shard_map
+    mode), saved and restored per rank."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 axis: Optional[DataAxis] = None, rank_streams: bool = False):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.axis = axis if axis is not None and axis.size > 1 else None
+        self.rank_streams = rank_streams and self.axis is not None
+        self._writes = self.axis is None or self.axis.is_main
+        if self._writes:
+            os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self._best_dir = os.path.join(self.directory, "best")
 
+    def _written(self) -> None:
+        """After rank 0's write: every rank waits for it."""
+        if self.axis is not None:
+            self.axis.barrier()
+
+    def _load(self, path: str, state: TrainState) -> TrainState:
+        sd = _load_file(path)
+        load_state_dict(state, sd)
+        if self.rank_streams:
+            gens = sd.get("rank_generators")
+            if gens is None or len(gens) != self.axis.size:
+                have = "one stream" if gens is None else f"{len(gens)} ranks' streams"
+                raise ValueError(
+                    f"{path} holds {have}; a run of {self.axis.size} ranks in "
+                    "shard_map mode resumes only from a checkpoint of as many ranks")
+            state.generator.set_state(gens[self.axis.index])
+        return state
+
     def _steps(self) -> List[int]:
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(self.directory))
                       if m)
 
@@ -138,11 +177,18 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState) -> None:
         """Write the checkpoint of ``step`` and drop all but the newest
-        ``max_to_keep``."""
-        _save_file(state_dict(state), self._path(step))
-        steps = self._steps()
-        for old in steps[:max(len(steps) - self.max_to_keep, 0)]:
-            os.remove(self._path(old))
+        ``max_to_keep`` (over ranks: a collective, rank 0 writing)."""
+        gens = (self.axis.gather_objects(state.generator.get_state())
+                if self.rank_streams else None)
+        if self._writes:
+            sd = state_dict(state)
+            if gens is not None:
+                sd["rank_generators"] = gens
+            _save_file(sd, self._path(step))
+            steps = self._steps()
+            for old in steps[:max(len(steps) - self.max_to_keep, 0)]:
+                os.remove(self._path(old))
+        self._written()
 
     def latest_step(self) -> Optional[int]:
         steps = self._steps()
@@ -156,12 +202,18 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        return load_state_dict(state, _load_file(self._path(step)))
+        return self._load(self._path(step), state)
 
     def save_best(self, state: TrainState, meta: Optional[dict] = None) -> None:
         """Overwrite the best-so-far snapshot (KID scheduler).  ``meta``
         (``{"best_kid": ..., "best_step": ...}``) is written inside the
-        state directory before the swap, so state and meta never mismatch."""
+        state directory before the swap, so state and meta never mismatch.
+        Over ranks, rank 0 writes and every rank waits for it."""
+        if self._writes:
+            self._save_best(state, meta)
+        self._written()
+
+    def _save_best(self, state: TrainState, meta: Optional[dict]) -> None:
         path = os.path.join(self._best_dir, "state")
         path_new, path_old = path + ".new", path + ".old"
         if os.path.exists(path_old) and not os.path.exists(path):

@@ -11,12 +11,13 @@ faster than the dense one at every size from 64 to 4096 rows, PERF.md).
 The fields keep their JAX names: ``use_pallas`` selects the fused CUDA
 path here.
 
-``num_data_shards`` and ``use_ring_mmd`` are honoured as in the JAX
-package: a multi-shard config without a ``DataAxis`` never takes the
-fused kernels, and with one the ring estimators serve the losses.  The
-trainer (``smmdax_torch.trainer``) reads the scoring, scheduler and
-dispatch fields and the data placement; it refuses ``num_data_shards >
-1`` and a sharded device-resident pool, which are not ported yet.
+``num_data_shards``, ``dp_mode``, ``global_batch_mmd`` and
+``use_ring_mmd`` are honoured as in the JAX package: the launcher
+(``python -m smmdax_torch.main``) starts one rank per shard and card, the
+step runs in GSPMD or shard_map mode, the ring estimators serve the losses
+in shard_map mode, and ``use_ring_mmd`` implies it.  The trainer
+(``smmdax_torch.trainer``) reads the scoring, scheduler and dispatch
+fields and the data placement, the pool whole or sharded over the ranks.
 ``remat`` runs the critic under activation checkpointing.
 """
 

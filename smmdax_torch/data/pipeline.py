@@ -56,33 +56,41 @@ class ArraySource:
     def _rng_for(self, key: Optional[int]) -> np.random.Generator:
         return self._rng if key is None else np.random.default_rng((self.seed, key))
 
-    def batch(self, n: int, key: Optional[int] = None) -> Array:
+    def batch(self, n: int, key: Optional[int] = None,
+              rows: Optional[Array] = None) -> Array:
+        """n samples, or the ``rows`` of them (every draw of the n is
+        made, only those rows are built)."""
         rng = self._rng_for(key)
-        idx = rng.integers(0, len(self.data), size=n)
+        idx = _rows(rng.integers(0, len(self.data), size=n), rows)
         if self.data.dtype == np.uint8:
             out = (self.data[idx].astype(np.float32) - np.float32(127.5)) * _INV_127_5
         else:
             out = self.data[idx]
         if self.flip:
-            m = rng.integers(0, 2, size=n).astype(bool)
+            m = _rows(rng.integers(0, 2, size=n).astype(bool), rows)
             out = out.copy()
             out[m] = out[m][:, :, ::-1, :]
         return out
 
-    def batch_u8(self, n: int, key: Optional[int] = None) -> Array:
+    def batch_u8(self, n: int, key: Optional[int] = None,
+                 rows: Optional[Array] = None) -> Array:
         """Raw uint8 batch for on-device normalization; float data is
         quantized."""
         rng = self._rng_for(key)
-        idx = rng.integers(0, len(self.data), size=n)
+        idx = _rows(rng.integers(0, len(self.data), size=n), rows)
         if self.data.dtype == np.uint8:
             out = self.data[idx]
         else:
             out = np.round((self.data[idx] + 1.0) * 127.5).astype(np.uint8)
         if self.flip:
-            m = rng.integers(0, 2, size=n).astype(bool)
+            m = _rows(rng.integers(0, 2, size=n).astype(bool), rows)
             out = out.copy()
             out[m] = out[m][:, :, ::-1, :]
         return out
+
+
+def _rows(a: Array, rows: Optional[Array]) -> Array:
+    return a if rows is None else a[rows]
 
 
 def _load_cifar10(data_dir: str) -> Optional[Array]:
@@ -159,13 +167,23 @@ def make_dataset(cfg: Config) -> DataSource:
 
 
 def macro_batch_at(source, step: int, per_step: int, batch: int,
-                   u8: bool = False) -> Array:
+                   u8: bool = False, block: Optional[Tuple[int, int]] = None) -> Array:
     """The (per_step, batch, ...) macro-batch of ``step``: float [-1, 1]
     from ``source.batch``, or uint8 from ``source.batch_u8`` (the
-    trainer's uint8-transfer path), bit-identical to the JAX package's."""
+    trainer's uint8-transfer path), bit-identical to the JAX package's.
+    ``block=(rank, ranks)``: that rank's (per_step, batch / ranks, ...)
+    block, byte-identical to columns [rank * b, (rank + 1) * b) of the
+    whole, with only those samples built."""
     draw = source.batch_u8 if u8 else source.batch
-    flat = draw(per_step * batch, key=step)
-    return flat.reshape((per_step, batch) + flat.shape[1:])
+    if block is None:
+        flat = draw(per_step * batch, key=step)
+        return flat.reshape((per_step, batch) + flat.shape[1:])
+    rank, ranks = block
+    b = batch // ranks
+    rows = (np.arange(per_step)[:, None] * batch
+            + np.arange(rank * b, (rank + 1) * b)[None, :]).ravel()
+    flat = draw(per_step * batch, key=step, rows=rows)
+    return flat.reshape((per_step, b) + flat.shape[1:])
 
 
 def macro_batches(source: DataSource, per_step: int, batch: int,
@@ -183,19 +201,35 @@ def macro_batches(source: DataSource, per_step: int, batch: int,
 _POOL_KEY = 2**31 + 2
 
 
-def materialize_u8(source: DataSource, pool: int = 0) -> Optional[Array]:
+def materialize_u8(source: DataSource, pool: int = 0,
+                   block: Optional[Tuple[int, int]] = None) -> Optional[Array]:
     """The dataset as ONE uint8 (N, H, W, C) array: an in-memory source's
     backing array, or a fixed ``pool``-sample draw from a procedural
-    source with ``batch_u8``; None when neither is possible."""
+    source with ``batch_u8``; None when neither is possible.
+    ``block=(rank, ranks)``: that rank's slice of the dataset cut to a
+    multiple of ``ranks`` samples (equal slices, the remainder dropped),
+    with only those samples of a procedural pool built."""
     if getattr(source, "flip", False):
         raise ValueError("data_placement=device cannot honor flip "
                          "augmentation (batches are gathered in-program "
                          "from the resident pool); disable one of them")
+    def span(total: int) -> slice:
+        if block is None:
+            return slice(0, total)
+        rank, ranks = block
+        per = total // ranks
+        return slice(rank * per, (rank + 1) * per)
+
     data = getattr(source, "data", None)
     if isinstance(data, np.ndarray) and data.ndim == 4:
+        data = data[span(data.shape[0])]
         if data.dtype == np.uint8:
             return data
         return np.round((np.asarray(data) + 1.0) * 127.5).astype(np.uint8)
     if pool > 0 and hasattr(source, "batch_u8"):
-        return source.batch_u8(pool, key=_POOL_KEY)
+        if block is None:
+            return source.batch_u8(pool, key=_POOL_KEY)
+        rows = span(pool)
+        return source.batch_u8(pool, key=_POOL_KEY,
+                               rows=np.arange(rows.start, rows.stop))
     return None

@@ -27,11 +27,15 @@ class GaussianMix:
     def sample_shape(self) -> Tuple[int, ...]:
         return (self.dim,)
 
-    def batch(self, n: int, key: Optional[int] = None) -> Array:
+    def batch(self, n: int, key: Optional[int] = None,
+              rows: Optional[Array] = None) -> Array:
+        """n samples, or the ``rows`` of them (every draw of the n made)."""
         rng = self._rng if key is None else np.random.default_rng((self.seed, key))
         comp = rng.integers(0, len(self.means), size=n)
-        x = self.means[comp][:, None] + self.stddev * rng.standard_normal(
-            (n, self.dim)).astype(np.float32)
+        noise = rng.standard_normal((n, self.dim)).astype(np.float32)
+        if rows is not None:
+            comp, noise = comp[rows], noise[rows]
+        x = self.means[comp][:, None] + self.stddev * noise
         return x.astype(np.float32)
 
 
@@ -63,14 +67,17 @@ class SyntheticImages:
     def sample_shape(self) -> Tuple[int, ...]:
         return (self.size, self.size, self.channels)
 
-    def _draw(self, n: int, key: Optional[int]):
-        """One prototype+shift gather plus the per-sample jitter."""
+    def _draw(self, n: int, key: Optional[int], rows: Optional[Array] = None):
+        """One prototype+shift gather plus the per-sample jitter, of the
+        n samples or of their ``rows`` (every draw of the n is made)."""
         rng = self._rng if key is None else np.random.default_rng(
             (self.seed, key))
         idx = rng.integers(0, len(self.protos), size=n)
         gain = rng.uniform(0.7, 1.0, (n, 1, 1, 1)).astype(np.float32)
         bias = rng.uniform(-0.1, 0.1, (n, 1, 1, 1)).astype(np.float32)
         shifts = rng.integers(-4, 5, size=(n, 2))
+        if rows is not None:
+            idx, gain, bias, shifts = idx[rows], gain[rows], bias[rows], shifts[rows]
         ar = np.arange(self.size)
         row_idx = (ar[None, :] - shifts[:, 0:1]) % self.size
         col_idx = (ar[None, :] - shifts[:, 1:2]) % self.size
@@ -78,13 +85,15 @@ class SyntheticImages:
                            row_idx[:, :, None], col_idx[:, None, :]]
         return imgs, gain, bias
 
-    def batch(self, n: int, key: Optional[int] = None) -> Array:
-        imgs, gain, bias = self._draw(n, key)
+    def batch(self, n: int, key: Optional[int] = None,
+              rows: Optional[Array] = None) -> Array:
+        imgs, gain, bias = self._draw(n, key, rows)
         return np.clip(imgs * gain + bias, -1.0, 1.0)
 
-    def batch_u8(self, n: int, key: Optional[int] = None) -> Array:
+    def batch_u8(self, n: int, key: Optional[int] = None,
+                 rows: Optional[Array] = None) -> Array:
         """Exactly ``round((batch(n, key) + 1) * 127.5)`` as uint8."""
-        imgs, gain, bias = self._draw(n, key)
+        imgs, gain, bias = self._draw(n, key, rows)
         out = np.rint(imgs * (gain * 127.5) + (bias + 1.0) * 127.5)
         np.clip(out, 0.0, 255.0, out=out)
         return out.astype(np.uint8)

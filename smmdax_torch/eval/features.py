@@ -106,7 +106,8 @@ class RandomConvFeatures:
             outs = [self._forward(ws, torch.as_tensor(images[i:i + self.batch])
                                   .to(dev, torch.float32))
                     for i in range(0, len(images), self.batch)]
-            feats = torch.cat(outs)
+            # no images (a rank's empty share of a set): no features
+            feats = torch.cat(outs) if outs else torch.empty((0, self.feature_dim), device=dev)
         return feats.cpu().numpy() if fetch else feats
 
 

@@ -20,7 +20,9 @@ this rank's blocks and every statistic is over the global batch: the ring
 estimators (``use_ring_mmd``) or gathered features for the kernel terms,
 ``pmean`` for per-sample means, sigma and the penalties.  So the loss
 value, and the pmean of the ranks' gradients, are those of the
-single-device global-batch computation.
+single-device global-batch computation.  The GSPMD-mode step calls these
+with ``global_batch_mmd`` on and the ring off, which gives the JAX GSPMD
+program's global-batch losses.
 """
 
 from __future__ import annotations
@@ -72,8 +74,12 @@ def _add_dot(cfg: Config) -> float:
 def _fused(cfg: Config, f_a: Tensor, f_b: Tensor,
            axis: Optional[DataAxis] = None) -> bool:
     """Fused-vs-dense decision for the Gram blocks of these features.  A
-    multi-shard config without an axis (a global-batch program) never
-    fuses, as in the JAX package, where the kernels run per shard only."""
+    multi-shard config without an axis never fuses, as in the JAX package.
+    There the guard keeps a ``pallas_call`` out of a GSPMD program, which
+    XLA would partition around an opaque call.  The port's GSPMD mode is
+    an explicit per-rank program with an axis: the kernels run on the
+    all-gathered rows (64 per rank, gathered to 64 * ranks) of every rank,
+    and the guard does not apply to it."""
     if axis is None and cfg.num_data_shards > 1:
         return False
     return should_use_pallas(cfg.use_pallas, cfg.kernel, f_a.shape[0],
@@ -259,15 +265,20 @@ def _zero(like: Tensor, value: float = 0.0) -> Tensor:
 
 def critic_loss(cfg: Config, critic: Critic, real: Tensor, fake: Tensor,
                 probe: Optional[Tensor] = None, eps: Optional[Tensor] = None,
-                axis: Optional[DataAxis] = None) -> Tuple[Tensor, LossAux]:
+                axis: Optional[DataAxis] = None,
+                pairs: Optional[Tuple[Tensor, Tensor]] = None
+                ) -> Tuple[Tensor, LossAux]:
     """The critic-step objective (minimized).  With ``axis``, ``real`` and
-    ``fake`` are this rank's blocks and the loss is the global one."""
+    ``fake`` are this rank's blocks and the loss is the global one.
+    ``pairs``: the (real, fake) rows the penalty interpolates with
+    ``eps``, by default ``real`` and ``fake`` themselves."""
     f_real, f_fake = _critic_features(cfg, critic, real, fake)
+    gp_real, gp_fake = (real, fake) if pairs is None else pairs
 
     if cfg.model == "wgan-gp":
         h_real = _pmean(torch.mean(_scalar_critic(f_real)), axis)
         h_fake = _pmean(torch.mean(_scalar_critic(f_fake)), axis)
-        gp = _pmean(wgan_gradient_penalty(cfg, critic, real, fake, eps), axis)
+        gp = _pmean(wgan_gradient_penalty(cfg, critic, gp_real, gp_fake, eps), axis)
         loss = h_fake - h_real + cfg.gradient_penalty * gp
         if cfg.L2_discriminator_penalty > 0:
             loss = loss + cfg.L2_discriminator_penalty * 0.5 * _pmean(
@@ -302,7 +313,7 @@ def critic_loss(cfg: Config, critic: Critic, real: Tensor, fake: Tensor,
     gp = _zero(mmd2_val)
     if cfg.gradient_penalty > 0:
         gp = _pmean(witness_gradient_penalty(
-            cfg, critic, real, fake, _gather(f_real, axis),
+            cfg, critic, gp_real, gp_fake, _gather(f_real, axis),
             _gather(f_fake, axis), eps), axis)
         loss = loss + cfg.gradient_penalty * gp
     if cfg.L2_discriminator_penalty > 0:

@@ -5,16 +5,36 @@ CPU, and without a card nothing falls back to it).
   python -m smmdax_torch.main --is_train true --dataset cifar10 \\
       --architecture resnet --model sn-smmd --kernel rq ...
   python -m smmdax_torch.main --is_train false --visualize true ...   # sample
+
+Training over several ranks is one command, as the JAX package's:
+``--num_data_shards N`` starts N rank processes, one per card (``cuda:r``,
+NCCL), joined over a FileStore in a directory the launcher makes; with
+``--device cpu`` the ranks are gloo processes on the CPU.  It refuses more
+ranks than cards.  If a rank fails, the launcher kills the others and
+exits non-zero with that rank's traceback; if every rank exits with the
+RSS watchdog's restart code, it starts the group again, which resumes
+from the checkpoint just written.  SIGTERM / SIGINT to the launcher reach
+every rank (each checkpoints at the same step and stops).
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import os
+import shutil
+import signal
+import sys
+import tempfile
+import time
+import traceback
+from typing import List
 
 import numpy as np
 import torch
 
-from smmdax_torch.configs import build_argparser, config_from_namespace
+from smmdax_torch.configs import Config, build_argparser, config_from_namespace
+
+POLL_S = 0.2
 
 
 def main(argv=None) -> None:
@@ -25,6 +45,11 @@ def main(argv=None) -> None:
     cfg = config_from_namespace(ns)
 
     if cfg.is_train:
+        if cfg.num_data_shards > 1:
+            code = launch(cfg, ns.device)
+            if code:
+                raise SystemExit(code)
+            return
         from smmdax_torch.trainer import train
         train(cfg, device=ns.device)
         return
@@ -82,6 +107,99 @@ def main(argv=None) -> None:
             is_mean, is_std = inception_score(probs)
             line += f" IS={is_mean:.3f} (+-{is_std:.3f})"
         print(line)
+
+
+def launch(cfg: Config, device="cuda") -> int:
+    """Train ``cfg`` on ``cfg.num_data_shards`` rank processes; returns the
+    exit code of the group (0 when every rank finished)."""
+    from smmdax_torch.train import check_devices
+    from smmdax_torch.trainer import RESTART_EXIT_CODE
+    check_devices(cfg, device)
+    world = cfg.num_data_shards
+    while True:
+        codes = _run_group(cfg, device, world)
+        if all(c == RESTART_EXIT_CODE for c in codes):
+            print("[smmdax_torch] restarting the group of ranks", flush=True)
+            continue
+        if all(c == 0 for c in codes):
+            return 0
+        # a rank's own exit code, or 1 for one killed by a signal
+        return next((c for c in codes if c not in (0, RESTART_EXIT_CODE) and c > 0), 1)
+
+
+def _run_group(cfg: Config, device, world: int) -> List[int]:
+    """One start of the group: the ranks' exit codes.  A rank that fails
+    (any code but 0 or the restart code) has the others killed, and its
+    traceback printed."""
+    from smmdax_torch.trainer import RESTART_EXIT_CODE
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="smmdax_torch_ranks_")
+    errs = [os.path.join(tmp, f"rank{r}.err") for r in range(world)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, str(device), os.path.join(tmp, "store"), cfg,
+                               errs[r]))
+             for r in range(world)]
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.pid is not None and p.exitcode is None:
+                os.kill(p.pid, signum)
+
+    try:
+        old = [signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)]
+    except ValueError:           # not the main thread
+        old = None
+    try:
+        for p in procs:
+            p.start()
+        failed = None
+        while failed is None and any(p.exitcode is None for p in procs):
+            time.sleep(POLL_S)
+            failed = next((r for r, p in enumerate(procs)
+                           if p.exitcode not in (None, 0, RESTART_EXIT_CODE)), None)
+        if failed is not None:
+            for p in procs:
+                if p.exitcode is None:
+                    p.kill()
+            msg = f"exit code {procs[failed].exitcode}\n"
+            if os.path.exists(errs[failed]):
+                with open(errs[failed]) as f:
+                    msg = f.read()
+            print(f"[smmdax_torch] rank {failed} of {world} failed; the others were "
+                  f"stopped:\n{msg}", file=sys.stderr, flush=True)
+        for p in procs:
+            p.join()
+        return [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.pid is not None and p.exitcode is None:
+                p.kill()
+                p.join()
+        if old is not None:
+            signal.signal(signal.SIGTERM, old[0])
+            signal.signal(signal.SIGINT, old[1])
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_main(rank: int, world: int, device: str, store: str, cfg: Config,
+               err_path: str) -> None:
+    """One rank: join the group on its device, train, leave the group."""
+    from smmdax_torch.parallel.collectives import init_data_axis, rank_device
+    from smmdax_torch.trainer import Trainer
+    try:
+        dev = rank_device(device, rank)
+        if dev.type == "cpu":
+            # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        axis = init_data_axis(dev, rank, world, store)
+        try:
+            Trainer(cfg, device=dev, axis=axis).train()
+        finally:
+            axis.close()
+    except Exception:
+        with open(err_path, "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

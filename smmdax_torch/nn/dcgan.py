@@ -60,15 +60,16 @@ class DCGANGenerator(nn.Module):
         self.deconv_out = ConvTranspose(width, c_dim, dtype=dtype, generator=generator)
 
     def forward(self, z: Tensor, train: bool = True,
-                update_stats: bool = False) -> Tensor:
+                update_stats: bool = False, axis=None) -> Tensor:
         """z (B, z_dim) -> images (B, H, W, C) in [-1, 1], float32.
-        ``update_stats`` updates the BN running averages (train mode)."""
+        ``update_stats`` updates the BN running averages (train mode);
+        ``axis`` gives every BN layer the global batch's statistics."""
         x = self.project(z)
         x = x.reshape(-1, self.base, self.base, self.width0).permute(0, 3, 1, 2)
-        x = torch.relu(self.bn_in(x, train, update_stats))
+        x = torch.relu(self.bn_in(x, train, update_stats, axis))
         for i in range(self.n_blocks):
             x = getattr(self, f"deconv{i}")(x)
-            x = torch.relu(getattr(self, f"bn{i}")(x, train, update_stats))
+            x = torch.relu(getattr(self, f"bn{i}")(x, train, update_stats, axis))
         x = self.deconv_out(x)
         return torch.tanh(at_least_f32(x)).permute(0, 2, 3, 1)
 

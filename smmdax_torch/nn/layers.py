@@ -21,7 +21,11 @@ follow the flax modules exactly:
 * ``BatchNorm`` is flax ``nn.BatchNorm``: float32 statistics with
   var = E[x^2] - E[x]^2 clamped at 0, eps 1e-5, and running averages
   ``0.99 * old + 0.01 * batch`` of the mean and the BIASED variance
-  (torch's built-in BN keeps the unbiased one).
+  (torch's built-in BN keeps the unbiased one).  Called with a data
+  ``axis`` (GSPMD mode over ranks), the training-mode statistics are
+  those of the GLOBAL batch: the ranks' sums of x and x^2 are psum'd
+  and divided by the global count, as XLA partitions flax's reduction
+  over a sharded batch; the backward is the psum's transpose.
 """
 
 from __future__ import annotations
@@ -203,11 +207,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: Tensor, train: bool, update_stats: bool = False) -> Tensor:
+    def forward(self, x: Tensor, train: bool, update_stats: bool = False,
+                axis=None) -> Tensor:
+        """``axis``: a ``DataAxis`` whose ranks hold the other blocks of
+        the batch (statistics over the global batch), or None."""
         xf = at_least_f32(x)
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            if axis is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            else:
+                sums = torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
+                count = xf.shape[0] * xf.shape[2] * xf.shape[3] * axis.size
+                mean, mean2 = axis.psum(sums) / count
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
             if update_stats:
                 with torch.no_grad():

@@ -27,10 +27,10 @@ class MLPGenerator(nn.Module):
         self.out = SNDense(cin, out_dim, stddev=_STDDEV, generator=generator)
 
     def forward(self, z: Tensor, train: bool = True,
-                update_stats: bool = False) -> Tensor:
-        """z (B, z_dim) -> samples (B, out_dim) in [-1, 1].  ``train`` and
-        ``update_stats`` are accepted for the generators' common call and
-        change nothing (no BatchNorm)."""
+                update_stats: bool = False, axis=None) -> Tensor:
+        """z (B, z_dim) -> samples (B, out_dim) in [-1, 1].  ``train``,
+        ``update_stats`` and ``axis`` are accepted for the generators'
+        common call and change nothing (no BatchNorm)."""
         x = z
         for i in range(self.n_hidden):
             x = torch.relu(getattr(self, f"fc{i}")(x))

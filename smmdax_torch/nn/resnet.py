@@ -47,12 +47,12 @@ class GenBlock(nn.Module):
                         if in_features != features else None)
 
     def forward(self, x: Tensor, train: bool = True,
-                update_stats: bool = False) -> Tensor:
-        h = torch.relu(self.bn1(x, train, update_stats))
+                update_stats: bool = False, axis=None) -> Tensor:
+        h = torch.relu(self.bn1(x, train, update_stats, axis))
         if self.upsample:
             h = upsample_nearest(h)
         h = self.conv1(h)
-        h = torch.relu(self.bn2(h, train, update_stats))
+        h = torch.relu(self.bn2(h, train, update_stats, axis))
         h = self.conv2(h)
         sc = upsample_nearest(x) if self.upsample else x
         if self.conv_sc is not None:
@@ -117,14 +117,15 @@ class ResNetGenerator(nn.Module):
         self.conv_out = SNConv(cin, c_dim, 3, dtype=dtype, generator=generator)
 
     def forward(self, z: Tensor, train: bool = True,
-                update_stats: bool = False) -> Tensor:
+                update_stats: bool = False, axis=None) -> Tensor:
         """z (B, z_dim) -> images (B, H, W, C) in [-1, 1], float32.
-        ``update_stats`` updates the BN running averages (train mode)."""
+        ``update_stats`` updates the BN running averages (train mode);
+        ``axis`` gives every BN layer the global batch's statistics."""
         x = self.project(z)
         x = x.reshape(-1, self.base, self.base, self.width0).permute(0, 3, 1, 2)
         for i in range(self.n_blocks):
-            x = getattr(self, f"block{i}")(x, train, update_stats)
-        x = torch.relu(self.bn_out(x, train, update_stats))
+            x = getattr(self, f"block{i}")(x, train, update_stats, axis)
+        x = torch.relu(self.bn_out(x, train, update_stats, axis))
         x = self.conv_out(x)
         return torch.tanh(at_least_f32(x)).permute(0, 2, 3, 1)
 

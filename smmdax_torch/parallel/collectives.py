@@ -17,12 +17,20 @@ global by a ``psum`` is differentiated by each rank on its own, and the
 
 ``init_data_axis`` sets up the default process group from an explicit
 store (a ``FileStore`` path, or a ``HashStore`` for one rank), with NCCL
-for a CUDA device and gloo for the CPU.
+for a CUDA device and gloo for the CPU.  ``rank_device`` names a rank's
+device as the launcher places it: ``cuda:<rank>``, one process per card.
+
+Host-side coordination of the trainer (a barrier, "did any rank see a
+signal", rank 0's decision broadcast, each rank's small object gathered)
+runs over a gloo group of its own on CPU tensors, so it never waits on the
+card's stream.  The transport of each collective is a method of
+``DataAxis`` (``_all_reduce``, ``_all_gather``, ``_reduce_scatter``,
+``_shift``), so a subclass may carry the tensors another way.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -38,7 +46,13 @@ class DataAxis:
         self.device = torch.device(device)
         self.size = dist.get_world_size()
         self.index = dist.get_rank()
-        self._nccl = dist.get_backend() == "nccl"
+        self.backend = dist.get_backend()
+        self._host_group = None
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0: the one rank that writes files."""
+        return self.index == 0
 
     def psum(self, x: Tensor) -> Tensor:
         return _PSum.apply(x, self)
@@ -57,9 +71,95 @@ class DataAxis:
             return x
         return _Shift.apply(x, self, 1)
 
+    # -- host-side coordination (no autograd, CPU tensors over gloo) ------
+
+    def _host(self):
+        """The gloo group of host collectives, made at the first use (every
+        rank reaches its first host collective at the same point)."""
+        if self._host_group is None:
+            self._host_group = (dist.group.WORLD if self.backend == "gloo"
+                                else dist.new_group(backend="gloo"))
+        return self._host_group
+
+    def barrier(self) -> None:
+        dist.barrier(group=self._host())
+
+    def any(self, *flags: bool) -> List[bool]:
+        """For each flag: whether it is set on any rank."""
+        t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._host())
+        return [bool(v) for v in t.tolist()]
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        """Rank ``src``'s picklable ``obj`` on every rank."""
+        box = [obj if self.index == src else None]
+        dist.broadcast_object_list(box, src=src, group=self._host())
+        return box[0]
+
+    def gather_objects(self, obj: Any) -> List[Any]:
+        """Every rank's picklable ``obj``, in rank order, on every rank."""
+        out: List[Any] = [None] * self.size
+        dist.all_gather_object(out, obj, group=self._host())
+        return out
+
+    def all_gather_rows(self, x: Tensor) -> Tensor:
+        """Every rank's (b_r, ...) rows concatenated in rank order on every
+        rank, for blocks of unequal length (no gradient)."""
+        sizes = self.gather_objects(int(x.shape[0]))
+        top = max(sizes)
+        pad = torch.zeros((top - x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        with torch.no_grad():
+            full = self._all_gather(torch.cat([x, pad]).to(self.device)).to(x.device)
+        return torch.cat([full[r * top:r * top + b] for r, b in enumerate(sizes)])
+
     def close(self) -> None:
         """Destroy the default process group."""
         dist.destroy_process_group()
+
+    # -- the transport of the collectives (no autograd) -------------------
+
+    def _all_reduce(self, x: Tensor) -> Tensor:
+        out = x.contiguous().clone()
+        dist.all_reduce(out)
+        return out
+
+    def _all_gather(self, x: Tensor) -> Tensor:
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts, dim=0)
+
+    def _reduce_scatter(self, x: Tensor) -> Tensor:
+        """Sum over ranks, then this rank's block of dim 0."""
+        b = x.shape[0] // self.size
+        if self.backend == "nccl":
+            out = torch.empty((b,) + x.shape[1:], dtype=x.dtype, device=x.device)
+            dist.reduce_scatter_tensor(out, x.contiguous())
+            return out
+        # gloo has no reduce-scatter: all-reduce, then take this rank's block
+        return self._all_reduce(x)[self.index * b:(self.index + 1) * b]
+
+    def _shift(self, x: Tensor, step: int) -> Tensor:
+        """Rank i's x to rank i + step (mod size), over more than one rank."""
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, (self.index + step) % self.size),
+               dist.P2POp(dist.irecv, out, (self.index - step) % self.size)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """Rank ``rank``'s device: ``cuda:<rank>`` (one process per card) for
+    a CUDA device type, the CPU for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.device("cuda", rank)
+    if device.type == "cpu":
+        return device
+    raise ValueError(f"no ranks on {device}")
 
 
 def init_data_axis(device, rank: int = 0, world_size: int = 1,
@@ -95,46 +195,11 @@ def init_data_axis(device, rank: int = 0, world_size: int = 1,
 # the collectives and their transposes
 
 
-def _all_reduce(x: Tensor, axis: DataAxis) -> Tensor:
-    out = x.contiguous().clone()
-    dist.all_reduce(out)
-    return out
-
-
-def _all_gather(x: Tensor, axis: DataAxis) -> Tensor:
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(axis.size)]
-    dist.all_gather(parts, x)
-    return torch.cat(parts, dim=0)
-
-
-def _reduce_scatter(x: Tensor, axis: DataAxis) -> Tensor:
-    """Sum over ranks, then this rank's block of dim 0."""
-    b = x.shape[0] // axis.size
-    if axis._nccl:
-        out = torch.empty((b,) + x.shape[1:], dtype=x.dtype, device=x.device)
-        dist.reduce_scatter_tensor(out, x.contiguous())
-        return out
-    # gloo has no reduce-scatter: all-reduce, then take this rank's block
-    return _all_reduce(x, axis)[axis.index * b:(axis.index + 1) * b]
-
-
-def _shift(x: Tensor, axis: DataAxis, step: int) -> Tensor:
-    """Rank i's x to rank i + step (mod size), over more than one rank."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, (axis.index + step) % axis.size),
-           dist.P2POp(dist.irecv, out, (axis.index - step) % axis.size)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
-
-
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return _all_reduce(x, axis)
+        return axis._all_reduce(x)
 
     @staticmethod
     def backward(ctx, ct):
@@ -145,7 +210,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return _all_gather(x, axis)
+        return axis._all_gather(x)
 
     @staticmethod
     def backward(ctx, ct):
@@ -159,7 +224,7 @@ class _ReduceScatter(torch.autograd.Function):
             raise ValueError(f"dim 0 of {tuple(x.shape)} does not split "
                              f"over {axis.size} ranks")
         ctx.axis = axis
-        return _reduce_scatter(x, axis)
+        return axis._reduce_scatter(x)
 
     @staticmethod
     def backward(ctx, ct):
@@ -170,7 +235,7 @@ class _Shift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, step):
         ctx.axis, ctx.step = axis, step
-        return _shift(x, axis, step)
+        return axis._shift(x, step)
 
     @staticmethod
     def backward(ctx, ct):

@@ -21,24 +21,41 @@ Adam is ``optax.scale_by_adam`` (eps 1e-8, bias-corrected) with the
 learning rate applied by hand from ``state.lr_d`` / ``state.lr_g``,
 written out so the order of operations matches.
 
-Data parallelism is the counterpart of ``jit_train_step(mode="shard_map")``:
-one process per rank runs the per-rank program ``build_train_step(...,
-axis=axis)`` on its block of the batch, with its own noise stream
-(``create_state(..., rank=...)``), the global-batch losses of
-``smmdax_torch.losses`` (ring or gathered), and the gradients and the
-generator's BN running averages pmean'd over the ranks, so the state
-stays identical on every rank.  Each rank normalises with the batch
-statistics of its own block (no synced BN).  ``data_parallel_train_step``
-takes the global macro-batch and hands each rank its block.
+Data parallelism runs one process per rank (one per card), each with a
+``DataAxis`` over the group, in either of JAX's two modes
+(``cfg.dp_mode``, ``jit_train_step(mode=...)``):
 
-``dispatch_train_step`` is the single-device counterpart of JAX's
-``jit_train_step``: k macro-steps per call on a (k, ...) batch stack, as
-the trainer dispatches them.  ``device_data_train_step`` and
-``on_device_train_step`` are those of ``jit_train_step_device_data`` and
+* ``shard_map``: the per-rank program ``build_train_step(...,
+  axis=axis)`` on this rank's block of the batch, with its own noise
+  stream (``create_state(..., rank=...)``), the global-batch losses of
+  ``smmdax_torch.losses`` (ring or gathered), and the gradients and the
+  generator's BN running averages pmean'd over the ranks.  Each rank
+  normalises with its own block's statistics.
+* ``gspmd`` (the default): the step in global-batch terms, which XLA
+  partitions in the JAX package.  Every rank draws the macro-step's
+  GLOBAL noise from one shared stream (rank 0's, the single-device one)
+  and takes its rows of the latents and of the penalty's weights and the
+  whole probe, the weights pairing the rows of the global real and fake
+  batches that one device pairs; BatchNorm takes the global batch's
+  statistics; the MMD is the global-batch one on the gathered features.  So two ranks compute
+  what one device computes on the global batch.
+
+Either way the state stays identical on every rank.
+``data_parallel_train_step`` takes the global macro-batch and hands each
+rank its block; the trainer feeds each rank its block alone.
+
+``dispatch_train_step`` is the counterpart of JAX's ``jit_train_step``:
+k macro-steps per call on a (k, ...) batch stack, as the trainer
+dispatches them (over ranks, this rank's block of each).
+``device_data_train_step`` and ``on_device_train_step`` are those of ``jit_train_step_device_data`` and
 ``jit_train_step_on_device``: each macro-step gathers its batch from a
 dataset resident on the device, or draws a uniform one there, from a
 stream that is a pure function of (``cfg.random_seed``, the step), so it
-is the same at any k and across a resume.  ``sample`` and
+is the same at any k and across a resume.  Over ranks the pool is either
+whole on every rank (``device_data_sharding="replicated"``: the global
+gather, each rank taking its block) or split into equal slices
+(``"sharded"``: each rank gathers its rows from its own slice, with an
+index stream keyed also by its rank).  ``sample`` and
 ``interpolate`` generate in eval mode from the EMA weights, with their
 own ``torch.Generator``.
 
@@ -147,8 +164,9 @@ def create_state(cfg: Config, seed: int = 0, device="cuda",
 # single-update building blocks
 
 
-def _generate(gen: nn.Module, z: Tensor, update_stats: bool) -> Tensor:
-    return gen(z, train=True, update_stats=update_stats)
+def _generate(gen: nn.Module, z: Tensor, update_stats: bool,
+              bn_axis: Optional[DataAxis] = None) -> Tensor:
+    return gen(z, train=True, update_stats=update_stats, axis=bn_axis)
 
 
 def _refresh_spectral(cfg: Config, disc: nn.Module, device) -> None:
@@ -239,14 +257,32 @@ def critic_fn(cfg: Config, disc: nn.Module) -> Callable[[Tensor], Tensor]:
     return critic
 
 
+def _penalty_pairs(real: Tensor, fake: Tensor, axis: DataAxis
+                   ) -> Tuple[Tensor, Tensor]:
+    """GSPMD mode with unequal real and fake batches: the rows this rank's
+    penalty weights pair, rows [r m/n, (r+1) m/n) of the GLOBAL real[:m]
+    and fake[:m] (m = min of the two batches), from the gathered blocks.
+    Each rank's own blocks are those rows only when the batches are equal."""
+    with torch.no_grad():
+        real, fake = axis.all_gather(real), axis.all_gather(fake)
+    b = min(real.shape[0], fake.shape[0]) // axis.size
+    rows = slice(axis.index * b, (axis.index + 1) * b)
+    return real[rows], fake[rows]
+
+
 def _d_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
               probe: Optional[Tensor], eps: Optional[Tensor],
-              axis: Optional[DataAxis] = None) -> LossAux:
+              axis: Optional[DataAxis] = None,
+              bn_axis: Optional[DataAxis] = None) -> LossAux:
     with torch.no_grad():
-        fake = _generate(state.gen, z, update_stats=False)
+        fake = _generate(state.gen, z, update_stats=False, bn_axis=bn_axis)
     _refresh_spectral(cfg, state.disc, real.device)
+    pairs = None
+    # bn_axis is set in GSPMD mode only
+    if eps is not None and bn_axis is not None and real.shape[0] != fake.shape[0]:
+        pairs = _penalty_pairs(real, fake, bn_axis)
     loss, aux = critic_loss(cfg, critic_fn(cfg, state.disc), real, fake, probe=probe,
-                            eps=eps, axis=axis)
+                            eps=eps, axis=axis, pairs=pairs)
     grads = torch.autograd.grad(loss, list(state.disc.parameters()))
     _pmean_(grads, axis)
     _apply_update(cfg, state.disc, grads, state.d_opt, state.lr_d)
@@ -254,16 +290,19 @@ def _d_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
 
 
 def _g_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
-              probe: Optional[Tensor], axis: Optional[DataAxis] = None) -> LossAux:
+              probe: Optional[Tensor], axis: Optional[DataAxis] = None,
+              bn_axis: Optional[DataAxis] = None) -> LossAux:
     with _frozen(state.disc):
-        fake = _generate(state.gen, z, update_stats=True)
+        fake = _generate(state.gen, z, update_stats=True, bn_axis=bn_axis)
         loss, aux = generator_loss(cfg, critic_fn(cfg, state.disc), real, fake,
                                    probe=probe, axis=axis)
         grads = torch.autograd.grad(loss, list(state.gen.parameters()))
     _pmean_(grads, axis)
-    # each rank normalised with its own block's statistics; the running
-    # averages are pmean'd so the state stays replicated
-    _pmean_([b for _, b in state.gen.named_buffers()], axis)
+    if bn_axis is None:
+        # each rank normalised with its own block's statistics; the running
+        # averages are pmean'd so the state stays replicated (with the
+        # global statistics they are equal on every rank already)
+        _pmean_([b for _, b in state.gen.named_buffers()], axis)
     _apply_update(cfg, state.gen, grads, state.g_opt, state.lr_g)
     if cfg.ema_decay > 0:
         if state.g_params_ema is None or state.g_stats_ema is None:
@@ -322,6 +361,22 @@ def draw_noise(cfg: Config, state: TrainState, dsteps: int, gsteps: int,
     return noise
 
 
+def _rank_rows(cfg: Config, noise: Noise, axis: DataAxis) -> Noise:
+    """This rank's share of a macro-step's GLOBAL draws (GSPMD mode): its
+    block of the latents and of the penalty's weights, the whole probe.
+    The weights pair row i of the real and the fake batch: the rank's
+    block of them pairs the global rows ``_penalty_pairs`` takes."""
+    n, r = axis.size, axis.index
+    out = dict(noise)
+    b = cfg.batch_size // n
+    for key in ("d_z", "g_z"):
+        out[key] = noise[key][:, r * b:(r + 1) * b]
+    if "d_eps" in noise:
+        be = min(b, cfg.real_batch_size // n)
+        out["d_eps"] = noise["d_eps"][:, r * be:(r + 1) * be]
+    return out
+
+
 def _pick(noise: Noise, key: str, i: int) -> Optional[Tensor]:
     return noise[key][i] if key in noise else None
 
@@ -333,11 +388,15 @@ def build_train_step(cfg: Config, dsteps: int, gsteps: int,
 
     ``real``: (dsteps + gsteps, B, H, W, C), uint8 (normalized here) or
     float in [-1, 1], numpy or torch; with ``axis``, this rank's block of
-    the global batch (the per-rank program of JAX's ``shard_map`` mode).
+    the global batch, and ``cfg.dp_mode`` picks the program: ``shard_map``,
+    the per-rank program of JAX's shard_map mode, or ``gspmd``, global-batch
+    code (module docstring; ``use_ring_mmd`` implies shard_map).
     ``noise``: every draw of the macro-step (keys as ``draw_noise``), e.g.
     to replay another implementation's draws; drawn from
-    ``state.generator`` when None.  Metrics are 0-d device tensors with
-    the JAX package's keys, global over the ranks.
+    ``state.generator`` when None.  In ``shard_map`` mode they are this
+    rank's draws, in ``gspmd`` mode the global ones, of which each rank
+    takes its rows.  Metrics are 0-d device tensors with the JAX
+    package's keys, global over the ranks.
 
     The backward passes run on the calling thread.  On a CUDA device
     PyTorch's autograd engine otherwise runs them on a worker thread, and
@@ -347,6 +406,15 @@ def build_train_step(cfg: Config, dsteps: int, gsteps: int,
     its float32 value) would depend on how many nodes each thread has made
     before in the process, and a run resumed in a new process would leave
     the uninterrupted trajectory."""
+
+    # the ring is a per-rank program: it implies shard_map, as in JAX
+    gspmd = axis is not None and cfg.dp_mode == "gspmd" and not cfg.use_ring_mmd
+    # GSPMD: the losses are the global-batch ones (the JAX program has no
+    # axis, so neither the per-rank estimator nor the ring applies), BN
+    # takes the global statistics, the draws are global
+    loss_cfg = cfg.replace(global_batch_mmd=True, use_ring_mmd=False) if gspmd else cfg
+    bn_axis = axis if gspmd else None
+    draw_axis = None if gspmd else axis
 
     def train_step(state: TrainState, real, noise: Optional[Noise] = None):
         with torch.autograd.set_multithreading_enabled(False):
@@ -361,18 +429,20 @@ def build_train_step(cfg: Config, dsteps: int, gsteps: int,
             raise ValueError(f"real carries {real.shape[0]} updates' batches, "
                              f"the step runs {dsteps} + {gsteps}")
         if noise is None:
-            noise = draw_noise(cfg, state, dsteps, gsteps, axis)
+            noise = draw_noise(cfg, state, dsteps, gsteps, draw_axis)
         else:
             noise = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
                      for k, v in noise.items()}
+        if gspmd:
+            noise = _rank_rows(cfg, noise, axis)
 
         for i in range(dsteps):
-            d_aux = _d_update(cfg, state, real[i], noise["d_z"][i],
+            d_aux = _d_update(loss_cfg, state, real[i], noise["d_z"][i],
                               _pick(noise, "d_probe", i), _pick(noise, "d_eps", i),
-                              axis)
+                              axis, bn_axis)
         for j in range(gsteps):
-            g_aux = _g_update(cfg, state, real[dsteps + j], noise["g_z"][j],
-                              _pick(noise, "g_probe", j), axis)
+            g_aux = _g_update(loss_cfg, state, real[dsteps + j], noise["g_z"][j],
+                              _pick(noise, "g_probe", j), axis, bn_axis)
         state.step += 1
         metrics = {
             "d_loss_mmd2": d_aux.mmd2,
@@ -394,12 +464,14 @@ def build_train_step(cfg: Config, dsteps: int, gsteps: int,
 def data_parallel_train_step(cfg: Config, dsteps: int, gsteps: int,
                              axis: Optional[DataAxis]
                              ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
-    """The counterpart of ``jit_train_step(mode="shard_map")``:
+    """The counterpart of ``jit_train_step`` on a mesh:
     ``train_step(state, real, noise=None)`` with ``real`` the GLOBAL
     macro-batch (dsteps + gsteps, B, ...), of which this rank takes its
     contiguous block along dim 1.  ``cfg.num_data_shards`` is pinned to
     the axis size; a one-rank axis (or none) runs the single-device
-    program.  ``noise`` is this rank's."""
+    program.  The step runs in ``cfg.dp_mode`` (``use_ring_mmd`` implies
+    shard_map).  ``noise`` is this rank's in shard_map mode and the global
+    draws in gspmd mode."""
     if axis is None or axis.size == 1:
         return build_train_step(cfg.replace(num_data_shards=1), dsteps, gsteps)
     n = axis.size
@@ -407,8 +479,8 @@ def data_parallel_train_step(cfg: Config, dsteps: int, gsteps: int,
         raise ValueError(
             f"data-parallel training needs batch sizes divisible by the ranks "
             f"({cfg.batch_size}/{cfg.real_batch_size} vs {n} ranks)")
-    step = build_train_step(cfg.replace(num_data_shards=n), dsteps, gsteps,
-                            axis=axis)
+    cfg = cfg.replace(num_data_shards=n)
+    step = build_train_step(cfg, dsteps, gsteps, axis=axis)
 
     def train_step(state: TrainState, real, noise: Optional[Noise] = None):
         real = torch.as_tensor(real)
@@ -421,19 +493,42 @@ def data_parallel_train_step(cfg: Config, dsteps: int, gsteps: int,
     return train_step
 
 
-def check_single_device(cfg: Config) -> None:
-    """Raise for the execution modes of the JAX trainer that the port has
-    not ported yet: those over several ranks."""
-    if cfg.num_data_shards > 1:
-        raise NotImplementedError(
-            f"num_data_shards={cfg.num_data_shards}: the trainer over several "
-            "ranks and the GSPMD-mode program are not ported yet (ROADMAP: "
-            "several ranks); data_parallel_train_step is the per-rank step")
-    if cfg.data_placement == "device" and cfg.device_data_sharding == "sharded":
-        raise NotImplementedError(
-            "device_data_sharding='sharded': a pool partitioned over ranks is "
-            "not ported yet (ROADMAP: several ranks); one device holds the "
-            "pool whole ('replicated')")
+def check_devices(cfg: Config, device) -> None:
+    """Refuse more shards than the cards visible, as ``make_mesh`` refuses
+    more shards than devices: a run over several ranks never quietly runs
+    on fewer.  CPU ranks (gloo) are processes and have no such limit."""
+    if torch.device(device).type != "cuda" or cfg.num_data_shards <= 1:
+        return
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cfg.num_data_shards > visible:
+        raise ValueError(f"num_data_shards={cfg.num_data_shards} but only "
+                         f"{visible} CUDA devices are visible")
+
+
+def check_ranks(cfg: Config, axis: Optional[DataAxis]) -> Optional[DataAxis]:
+    """The axis a step builder (or the trainer) runs over, None for one
+    rank, checked against the config: a
+    config of n shards needs an axis of n ranks (no run over several
+    ranks quietly becomes one), and its batches must split over them."""
+    n = 1 if axis is None else axis.size
+    if cfg.num_data_shards != n:
+        raise ValueError(
+            f"num_data_shards={cfg.num_data_shards} but the step runs on {n} "
+            f"rank(s): start one process per rank (python -m smmdax_torch.main "
+            f"--num_data_shards {cfg.num_data_shards}) and pass each its DataAxis")
+    if n > 1 and (cfg.batch_size % n or cfg.real_batch_size % n):
+        raise ValueError(
+            f"data-parallel training needs batch sizes divisible by the ranks "
+            f"({cfg.batch_size}/{cfg.real_batch_size} vs {n} ranks)")
+    return axis if n > 1 else None
+
+
+def _block(t: Tensor, axis: Optional[DataAxis]) -> Tensor:
+    """This rank's contiguous block of dim 1 of a global macro-batch."""
+    if axis is None:
+        return t
+    b = t.shape[1] // axis.size
+    return t[:, axis.index * b:(axis.index + 1) * b]
 
 
 def _repeat(step, k: int):
@@ -450,16 +545,18 @@ def _repeat(step, k: int):
 
 
 def dispatch_train_step(cfg: Config, dsteps: int, gsteps: int,
-                        steps_per_dispatch: int = 1
+                        steps_per_dispatch: int = 1, axis: Optional[DataAxis] = None
                         ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
-    """The single-device counterpart of ``jit_train_step``: ``step(state,
-    real) -> (state, metrics)`` running ``steps_per_dispatch`` (k)
-    macro-steps per call.  With k > 1, ``real`` is the (k, dsteps + gsteps,
-    B, H, W, C) stack, copied to the device once, and the metrics are the
-    last macro-step's.  The macro-steps run one after another, so the
-    state is bit-identical to k calls of ``build_train_step``."""
-    check_single_device(cfg)
-    step = build_train_step(cfg, dsteps, gsteps)
+    """The counterpart of ``jit_train_step``: ``step(state, real) ->
+    (state, metrics)`` running ``steps_per_dispatch`` (k) macro-steps per
+    call.  With k > 1, ``real`` is the (k, dsteps + gsteps, B, H, W, C)
+    stack, copied to the device once, and the metrics are the last
+    macro-step's.  The macro-steps run one after another, so the state is
+    bit-identical to k calls of ``build_train_step``.  With ``axis``,
+    ``real`` is this rank's block (B / ranks rows) and the step runs in
+    ``cfg.dp_mode``."""
+    axis = check_ranks(cfg, axis)
+    step = build_train_step(cfg, dsteps, gsteps, axis=axis)
     k = steps_per_dispatch
     if k == 1:
         return step
@@ -480,12 +577,15 @@ _POOL_TAG = 0x0DA7A0D1
 _SYNTH_TAG = 0x0DDDA7A
 
 
-def data_stream(cfg: Config, tag: int, step: int, device) -> torch.Generator:
+def data_stream(cfg: Config, tag: int, step: int, device,
+                rank: Optional[int] = None) -> torch.Generator:
     """The generator of macro-step ``step``'s in-program data: seeded from
-    (``cfg.random_seed``, ``tag``, ``step``) alone, so the stream is the
-    same at any dispatch size and across a resume.  It is never
-    ``state.generator``, whose draws are the step's noise."""
-    seed = np.random.SeedSequence([cfg.random_seed, tag, step]).generate_state(1, np.uint64)[0]
+    (``cfg.random_seed``, ``tag``, ``step``) alone, or with a ``rank`` for
+    a stream of that rank's own, so the stream is the same at any dispatch
+    size and across a resume.  It is never ``state.generator``, whose
+    draws are the step's noise."""
+    key = [cfg.random_seed, tag, step] + ([] if rank is None else [rank])
+    seed = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
@@ -511,41 +611,53 @@ def batch_indices(generator: torch.Generator, pool_n: int, per_step: int,
 
 
 def device_data_train_step(cfg: Config, dsteps: int, gsteps: int,
-                           steps_per_dispatch: int = 1
+                           steps_per_dispatch: int = 1, axis: Optional[DataAxis] = None
                            ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
-    """The single-device counterpart of ``jit_train_step_device_data``:
-    ``step(state, pool) -> (state, metrics)``, with ``pool`` the whole
-    uint8 dataset (N, H, W, C) on the state's device.  Each of the k
-    macro-steps gathers its (dsteps + gsteps, real_batch_size) batch there
-    by ``batch_indices`` from its ``data_stream``."""
-    check_single_device(cfg)
-    step = build_train_step(cfg, dsteps, gsteps)
+    """The counterpart of ``jit_train_step_device_data``: ``step(state,
+    pool) -> (state, metrics)``, with ``pool`` the uint8 dataset (N, H, W,
+    C) on the state's device.  Each of the k macro-steps gathers its
+    (dsteps + gsteps, real_batch_size) batch there by ``batch_indices``
+    from its ``data_stream``.  Over ranks, ``pool`` is the whole dataset
+    (``device_data_sharding="replicated"``: the global gather, this rank
+    taking its block of it) or this rank's equal slice (``"sharded"``:
+    B / ranks rows gathered from the slice, from a stream of this rank's
+    own; the index never leaves the rank)."""
+    axis = check_ranks(cfg, axis)
+    step = build_train_step(cfg, dsteps, gsteps, axis=axis)
     per_step = dsteps + gsteps
+    sharded = axis is not None and cfg.device_data_sharding == "sharded"
 
     def data_step(state: TrainState, pool: Tensor):
         if pool.device != state.device:
             raise ValueError(f"the pool is on {pool.device}, the state on {state.device}")
+        if sharded:
+            g = data_stream(cfg, _POOL_TAG, state.step, state.device, rank=axis.index)
+            idx = batch_indices(g, pool.shape[0], per_step,
+                                cfg.real_batch_size // axis.size)
+            return step(state, pool[idx])
         g = data_stream(cfg, _POOL_TAG, state.step, state.device)
         idx = batch_indices(g, pool.shape[0], per_step, cfg.real_batch_size)
-        return step(state, pool[idx])
+        return step(state, pool[_block(idx, axis)])
 
     return _repeat(data_step, steps_per_dispatch)
 
 
 def on_device_train_step(cfg: Config, dsteps: int, gsteps: int,
-                         steps_per_dispatch: int = 1
+                         steps_per_dispatch: int = 1, axis: Optional[DataAxis] = None
                          ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
-    """The single-device counterpart of ``jit_train_step_on_device``:
-    ``step(state) -> (state, metrics)``; each of the k macro-steps draws a
-    real batch uniform in [-1, 1] on the device from its ``data_stream``
-    (noise, not the dataset: a measurement and smoke-training mode)."""
-    check_single_device(cfg)
-    step = build_train_step(cfg, dsteps, gsteps)
+    """The counterpart of ``jit_train_step_on_device``: ``step(state) ->
+    (state, metrics)``; each of the k macro-steps draws a real batch
+    uniform in [-1, 1] on the device from its ``data_stream`` (noise, not
+    the dataset: a measurement and smoke-training mode).  Over ranks each
+    rank draws the global batch and takes its block."""
+    axis = check_ranks(cfg, axis)
+    step = build_train_step(cfg, dsteps, gsteps, axis=axis)
     shape = (dsteps + gsteps, cfg.real_batch_size) + cfg.image_shape
 
     def synth_step(state: TrainState):
         g = data_stream(cfg, _SYNTH_TAG, state.step, state.device)
-        return step(state, torch.rand(shape, generator=g, device=state.device) * 2.0 - 1.0)
+        real = torch.rand(shape, generator=g, device=state.device) * 2.0 - 1.0
+        return step(state, _block(real, axis))
 
     return _repeat(synth_step, steps_per_dispatch)
 
@@ -582,23 +694,28 @@ def _own_generator(state: TrainState, generator: torch.Generator) -> None:
 
 
 def sample(cfg: Config, state: TrainState, generator: torch.Generator, n: int,
-           use_ema: bool = True) -> Tensor:
+           use_ema: bool = True, rows: Optional[Tuple[int, int]] = None) -> Tensor:
     """n images (n, H, W, C) in eval mode, batch_size at a time, from the
     EMA weights and statistics when tracked (unless ``use_ema=False``).
     Latents come from ``generator`` (on the state's device), never from
     the train step's ``state.generator``: sampling leaves training as it
-    was."""
+    was.  ``rows=(lo, hi)``, ``lo`` a multiple of batch_size: only images
+    [lo, hi) of the n, decoded from the same latents (every latent of the
+    n is drawn), so ranks that split the rows make the one-device set."""
     _own_generator(state, generator)
     weights = _eval_weights(state, use_ema)
     bs = cfg.batch_size
-    chunks = []
+    lo, hi = (0, n) if rows is None else rows
+    if lo % bs or not 0 <= lo <= hi <= n:
+        raise ValueError(f"rows {rows} of {n} samples in batches of {bs}")
+    zs = [torch.rand((bs, cfg.z_dim), generator=generator, device=state.device) * 2.0 - 1.0
+          for _ in range(-(-n // bs))]
+    chunks = [torch.empty((0,) + cfg.image_shape, device=state.device)]
     with torch.no_grad():
-        for _ in range(-(-n // bs)):
-            z = torch.rand((bs, cfg.z_dim), generator=generator,
-                           device=state.device) * 2.0 - 1.0
+        for z in zs[lo // bs:-(-hi // bs)]:
             chunks.append(torch.func.functional_call(
                 state.gen, weights, (z,), {"train": False}))
-    return torch.cat(chunks)[:n]
+    return torch.cat(chunks)[:hi - lo]
 
 
 def interpolate(cfg: Config, state: TrainState, generator: torch.Generator,

@@ -17,6 +17,18 @@ function (``smmdax_torch.viz``).
 Scoring and the scheduler decisions are keyed by step, so a resumed run
 repeats an uninterrupted one's decisions.
 
+Over several ranks (``Trainer(cfg, device, axis)``, one process per card,
+as ``python -m smmdax_torch.main --num_data_shards N`` starts them) each
+rank trains on its block of every batch in ``cfg.dp_mode`` and holds the
+same state.  Rank 0 alone writes logs, checkpoints, sample grids, toy
+frames and the profiler trace.  A preemption signal or the RSS watchdog's
+trip on any rank is agreed at the next dispatch boundary, so every rank
+stops, and saves, at the same step; the watchdog then ends every rank with
+``RESTART_EXIT_CODE`` and the launcher restarts the group, which resumes.
+Scoring splits the generated and real rows over the ranks and gathers the
+features in order, so the scores are the one-device ones, and every rank
+takes rank 0's scheduler decision.
+
 On the card the scoring features never leave it (the extractor runs on
 the generated images where they are, and the subset sweeps run there);
 on the CPU they are numpy and the float64 arm scores them, as the JAX
@@ -25,12 +37,13 @@ package does on the CPU.
 
 from __future__ import annotations
 
+import math
 import os
 import queue
 import signal
 import sys
 import threading
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,11 +55,17 @@ from smmdax_torch.eval.features import extract_features, extract_with_probs, get
 from smmdax_torch.eval.scores import (frechet_distance, gaussian_stats, inception_score,
                                       kid_from_features, relative_mmd_test,
                                       relative_similarity_test, use_device_scoring)
-from smmdax_torch.train import (TrainState, check_single_device, create_state,
+from smmdax_torch.parallel.collectives import DataAxis
+from smmdax_torch.train import (TrainState, check_devices, check_ranks, create_state,
                                 device_data_train_step, dispatch_train_step,
                                 on_device_train_step, resolve_device, sample)
 from smmdax_torch.utils import MetricWriter, StepTimer, save_images
 from smmdax_torch.viz import assemble_toy_animation, plot_toy_frame
+
+
+# exit code of every rank after the RSS watchdog's checkpoint over several
+# ranks: the launcher restarts the group, which resumes from it
+RESTART_EXIT_CODE = 75
 
 
 def _chunk_seed(seed: int, ci: int) -> int:
@@ -56,31 +75,43 @@ def _chunk_seed(seed: int, ci: int) -> int:
 
 
 class Trainer:
-    """``Trainer(cfg, device="cuda").train()``.  Raises without a card
-    unless ``device="cpu"``; refuses the execution modes not ported yet
-    (several ranks)."""
+    """``Trainer(cfg, device="cuda", axis=None).train()``.  Raises without
+    a card unless ``device="cpu"``.  ``axis``: this rank's ``DataAxis``
+    when ``cfg.num_data_shards > 1`` (required then: a run over several
+    ranks never quietly becomes one)."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", axis: Optional[DataAxis] = None):
         self.cfg = cfg
+        if axis is None:
+            # with an axis the ranks exist already (where they sit is the
+            # launcher's business: two may share a card over gloo)
+            check_devices(cfg, device)
         self.device = resolve_device(device)
-        check_single_device(cfg)
-        if (cfg.with_scaling and cfg.scaling_grad_estimator == "exact"
+        self.axis = check_ranks(cfg, axis)
+        self.rank = 0 if self.axis is None else self.axis.index
+        self.main = self.rank == 0
+        if (self.main and cfg.with_scaling and cfg.scaling_grad_estimator == "exact"
                 and cfg.output_size >= 64):
             print("[smmdax_torch] note: scaling_grad_estimator='exact' at "
                   f"output_size={cfg.output_size} runs dof_dim backward passes "
                   "per sigma; consider --scaling_grad_estimator hutchinson",
                   flush=True)
         self.source = make_dataset(cfg)
-        self.state = create_state(cfg, seed=cfg.random_seed, device=self.device)
-        self.ckpt = CheckpointManager(os.path.join(cfg.checkpoint_dir, cfg.run_name()))
+        # shard_map mode: a noise stream per rank; GSPMD: every rank draws
+        # the global noise from rank 0's (the single-device) stream
+        rank_streams = self.axis is not None and cfg.dp_mode == "shard_map"
+        self.state = create_state(cfg, seed=cfg.random_seed, device=self.device,
+                                  rank=self.rank if rank_streams else 0)
+        self.ckpt = CheckpointManager(os.path.join(cfg.checkpoint_dir, cfg.run_name()),
+                                      axis=self.axis, rank_streams=rank_streams)
         # whether THIS process resumed: only a resumed run rebuilds the
         # scheduler's best snapshot (a fresh run in a directory holding a
         # dead run's best checkpoint must not adopt it)
         self._resumed = self.ckpt.restore(self.state) is not None
-        if self._resumed:
+        if self._resumed and self.main:
             print(f"[smmdax_torch] resumed from step {self.state.step}")
         self.writer = MetricWriter(cfg.log_dir, cfg.run_name(), also_stdout=cfg.log,
-                                   tensorboard=cfg.tensorboard)
+                                   tensorboard=cfg.tensorboard, rank=self.rank)
         self._step_cache: Dict[tuple, callable] = {}
         self._extractor = None
         self._dev_data: Optional[torch.Tensor] = None   # data_placement="device"
@@ -109,7 +140,8 @@ class Trainer:
                 build = on_device_train_step
             else:
                 build = dispatch_train_step
-            fn = build(self.cfg, dsteps, self.cfg.gsteps, steps_per_dispatch=k)
+            fn = build(self.cfg, dsteps, self.cfg.gsteps, steps_per_dispatch=k,
+                       axis=self.axis)
             self._step_cache[key] = fn
         return fn
 
@@ -146,27 +178,67 @@ class Trainer:
         most SCORE_CHUNK_IMAGE_BYTES of images, each dropped once its
         features are taken.  One chunk covering ``n`` is exactly the
         unchunked sample -> extract; chunk ``ci`` of a larger set draws
-        from ``_chunk_seed(seed, ci)``."""
+        from ``_chunk_seed(seed, ci)``.  Over ranks each rank decodes and
+        extracts its rows of every chunk (``_rank_rows``) and the features
+        are gathered in order: the one-device set, on every rank."""
         cfg = self.cfg
-        fetch = not use_device_scoring(self.device)
         per_img = int(np.prod(cfg.image_shape)) * 4
         chunk = max(cfg.batch_size,
                     (self.SCORE_CHUNK_IMAGE_BYTES // per_img)
                     // cfg.batch_size * cfg.batch_size)
         if chunk >= n:
-            imgs = sample(cfg, state, self._generator(seed), n, use_ema=use_ema)
-            return extract_with_probs(self._extractor, imgs, fetch=fetch)
+            spans = [(seed, n)]
+        else:
+            spans = [(_chunk_seed(seed, ci), min(chunk, n - lo))
+                     for ci, lo in enumerate(range(0, n, chunk))]
         feats, probs = [], []
-        for ci, lo in enumerate(range(0, n, chunk)):
-            imgs = sample(cfg, state, self._generator(_chunk_seed(seed, ci)),
-                          min(chunk, n - lo), use_ema=use_ema)
-            f, p = extract_with_probs(self._extractor, imgs, fetch=fetch)
+        for s, m in spans:
+            rows = self._rank_rows(m, math.lcm(cfg.batch_size, self._extract_batch()))
+            imgs = sample(cfg, state, self._generator(s), m, use_ema=use_ema, rows=rows)
+            f, p = self._extract(imgs, with_probs=True)
             del imgs
             feats.append(f)
             if p is not None:
                 probs.append(p)
+        if len(feats) == 1:
+            return feats[0], (probs[0] if probs else None)
         cat = torch.cat if isinstance(feats[0], torch.Tensor) else np.concatenate
         return cat(feats), (cat(probs) if probs else None)
+
+    def _extract_batch(self) -> int:
+        """The extractor's batch: the unit of rows it sees together."""
+        return int(getattr(self._extractor, "batch", 1))
+
+    def _rank_rows(self, m: int, unit: int) -> Optional[Tuple[int, int]]:
+        """This rank's contiguous rows of ``m`` in whole ``unit``s (so the
+        generator's batches and the extractor's batches are those of one
+        device), None on one rank."""
+        if self.axis is None:
+            return None
+        units, n, r = -(-m // unit), self.axis.size, self.rank
+        return min(r * units // n * unit, m), min((r + 1) * units // n * unit, m)
+
+    def _extract(self, images, with_probs: bool = False):
+        """Features (and probs) of ``images``, this rank's rows of a set,
+        gathered over the ranks in rank order."""
+        fetch = not use_device_scoring(self.device)
+        if with_probs:
+            f, p = extract_with_probs(self._extractor, images, fetch=fetch)
+        else:
+            f, p = extract_features(self._extractor, images, fetch=fetch), None
+        if self.axis is not None:
+            f = self._gather_rows(f)
+            p = None if p is None else self._gather_rows(p)
+        return f, p
+
+    def _gather_rows(self, x):
+        if isinstance(x, np.ndarray):
+            return self.axis.all_gather_rows(torch.from_numpy(x)).numpy()
+        return self.axis.all_gather_rows(x)
+
+    def _agree(self, value: Any) -> Any:
+        """Rank 0's ``value`` on every rank: one decision for the group."""
+        return value if self.axis is None else self.axis.broadcast_object(value)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -192,9 +264,10 @@ class Trainer:
         fake_feats, fake_probs = self._gen_feats(self.state, seed, n)
         if self._real_feats is None:
             # fixed key: the reference set is the same across resumes
-            self._real_feats = extract_features(
-                self._extractor, self.source.batch(n, key=2**31 + 1),
-                fetch=not use_device_scoring(self.device))
+            rows = self._rank_rows(n, self._extract_batch())
+            real = (self.source.batch(n, key=2**31 + 1) if rows is None else
+                    self.source.batch(n, key=2**31 + 1, rows=np.arange(*rows)))
+            self._real_feats, _ = self._extract(real)
             self._real_stats = None
         if cfg.MMD_lr_scheduler and self._best_feats is None and self._resumed:
             # resumed run: rebuild the best snapshot's features with the
@@ -210,7 +283,7 @@ class Trainer:
                 # a best snapshot without its meta: re-score it (fixed seed)
                 # rather than let the first score replace a better snapshot
                 self._best_feats, _ = self._gen_feats(best_state, cfg.random_seed, n)
-                self._best_kid = self._kid(self._best_feats)[0]
+                self._best_kid = self._agree(self._kid(self._best_feats)[0])
         if self._real_stats is None:
             self._real_stats = gaussian_stats(self._real_feats)
         fid = frechet_distance(*self._real_stats, *gaussian_stats(fake_feats))
@@ -226,6 +299,10 @@ class Trainer:
             out["fid_live"] = frechet_distance(*self._real_stats,
                                                *gaussian_stats(live_feats))
             out["kid_live"] = self._kid(live_feats)[0]
+        # every rank holds the same features; the group takes rank 0's
+        # numbers, so its decisions are one
+        out = self._agree(out)
+        kid = out["kid"]
 
         if not cfg.MMD_lr_scheduler:
             return out
@@ -240,6 +317,7 @@ class Trainer:
                 self._real_feats, fake_feats, self._best_feats,
                 subset_size=min(cfg.scheduler_test_size, n),
                 n_subsets=cfg.scheduler_test_subsets, seed=step, combine="fisher")
+            p_val, t_stat = self._agree((p_val, t_stat))
             out["three_sample_p"] = p_val
             out["three_sample_t"] = t_stat
             improved = p_val < cfg.scheduler_p_threshold
@@ -248,6 +326,7 @@ class Trainer:
                 self._real_feats, fake_feats, self._best_feats,
                 subset_size=min(cfg.score_subset_size, n),
                 n_subsets=cfg.score_subsets, seed=step)
+            win = self._agree(win)
             out["three_sample_win"] = win
             improved = win > 0.5
         if improved:
@@ -296,9 +375,12 @@ class Trainer:
         cfg = self.cfg
         warm = self._dsteps_at(s) == cfg.start_dsteps and cfg.start_dsteps != cfg.dsteps
         per_step = (cfg.start_dsteps if warm else cfg.dsteps) + cfg.gsteps
+        # over ranks, this rank's block of the global macro-batch alone
+        block = None if self.axis is None else (self.rank, self.axis.size)
         if cfg.uint8_transfer and hasattr(self.source, "batch_u8"):
-            return warm, macro_batch_at(self.source, s, per_step, cfg.real_batch_size, u8=True)
-        batch = macro_batch_at(self.source, s, per_step, cfg.real_batch_size)
+            return warm, macro_batch_at(self.source, s, per_step, cfg.real_batch_size,
+                                        u8=True, block=block)
+        batch = macro_batch_at(self.source, s, per_step, cfg.real_batch_size, block=block)
         if cfg.uint8_transfer and batch.dtype == np.float32 and cfg.dataset != "gaussian_mix":
             # images are 8-bit data: a quarter of the bytes to the device;
             # the toy's 1-D samples are not images and stay float32
@@ -319,15 +401,21 @@ class Trainer:
 
         if cfg.data_placement == "device" and self._dev_data is None:
             # the dataset crosses to the device once; every batch after is
-            # gathered there
-            arr = materialize_u8(self.source, cfg.device_data_pool)
+            # gathered there.  Sharded over ranks: each rank holds an equal
+            # slice (the remainder of the division dropped)
+            sharded = self.axis is not None and cfg.device_data_sharding == "sharded"
+            block = (self.rank, self.axis.size) if sharded else None
+            arr = materialize_u8(self.source, cfg.device_data_pool, block=block)
             if arr is None:
                 raise ValueError(
                     f"data_placement=device needs an in-memory or pool-drawable "
                     f"dataset; {type(self.source).__name__} offers neither")
             self._dev_data = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-            print(f"[smmdax_torch] device-resident dataset: {arr.shape[0]} samples, "
-                  f"{arr.nbytes / 2**20:.0f} MB uploaded once", flush=True)
+            if self.main:
+                layout = (f", {self.axis.size} equal slices (sharded)" if sharded
+                          else "" if self.axis is None else ", on every rank (replicated)")
+                print(f"[smmdax_torch] device-resident dataset: {arr.shape[0]} samples, "
+                      f"{arr.nbytes / 2**20:.0f} MB uploaded once{layout}", flush=True)
 
         try:
             old_term = signal.signal(signal.SIGTERM, _on_term)
@@ -371,10 +459,17 @@ class Trainer:
                 signal.signal(signal.SIGINT, old_int)
         self.ckpt.save(self.state.step, self.state)
         if self._rss_tripped and cfg.auto_restart:
-            # the state is checkpointed: replace the process and resume
+            # the state is checkpointed: replace the process and resume;
+            # over ranks the whole group exits and the launcher restarts it
+            # (one rank re-executing alone would leave the group)
+            if self.axis is not None:
+                if self.main:
+                    print("[smmdax_torch] rss watchdog: the group exits to be "
+                          "restarted by the launcher")
+                raise SystemExit(RESTART_EXIT_CODE)
             print("[smmdax_torch] rss watchdog: re-exec to reclaim host memory")
             self._reexec()
-        if cfg.dataset == "gaussian_mix" and cfg.sample_every:
+        if cfg.dataset == "gaussian_mix" and cfg.sample_every and self.main:
             gif = assemble_toy_animation(os.path.join(cfg.sample_dir, cfg.run_name()))
             if gif:
                 print(f"[smmdax_torch] toy animation: {gif}")
@@ -382,8 +477,14 @@ class Trainer:
 
     def _train_loop(self, cfg: Config, timer: StepTimer, step: int, q) -> None:
         while step < cfg.max_iteration:
+            if self.axis is not None:
+                # a signal or a watchdog trip on any rank stops every rank
+                # here, at the same step
+                self._preempted, self._rss_tripped = self.axis.any(
+                    self._preempted, self._rss_tripped)
             if self._preempted:
-                print(f"[smmdax_torch] preemption signal: checkpointing at step {step}")
+                if self.main:
+                    print(f"[smmdax_torch] preemption signal: checkpointing at step {step}")
                 break
             # one dispatch = up to steps_per_dispatch macro-steps, never
             # crossing an event boundary
@@ -407,7 +508,7 @@ class Trainer:
                 batch = parts[0] if k_eff == 1 else np.stack(parts)
             dsteps = cfg.start_dsteps if warm else cfg.dsteps
             step_fn = self._get_step(dsteps, k_eff)
-            if cfg.profile_steps and step == cfg.profile_start:
+            if cfg.profile_steps and step == cfg.profile_start and self.main:
                 self._start_profiler()
             self.state, metrics = (step_fn(self.state) if batch is None
                                    else step_fn(self.state, batch))
@@ -422,9 +523,10 @@ class Trainer:
                 self._decay_lr()
 
             if (cfg.log_every and step % cfg.log_every == 0) or step == cfg.max_iteration:
-                m = {k: float(v) for k, v in metrics.items()}
-                m["images_per_sec"] = timer.rate()
-                self.writer.write(step, m)
+                if self.main:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["images_per_sec"] = timer.rate()
+                    self.writer.write(step, m)
                 timer.reset()
                 if cfg.rss_limit_gb and self._rss_gb() > cfg.rss_limit_gb:
                     # trip the graceful preemption path before the OOM
@@ -434,7 +536,7 @@ class Trainer:
                     self._rss_tripped = True
                     self._preempted = True
 
-            if cfg.sample_every and step % cfg.sample_every == 0:
+            if cfg.sample_every and step % cfg.sample_every == 0 and self.main:
                 self._save_samples(step)
 
             if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
@@ -513,5 +615,5 @@ class Trainer:
         save_images(imgs.cpu().numpy(), os.path.join(out_dir, f"sample_{step:07d}.png"))
 
 
-def train(cfg: Config, device="cuda") -> TrainState:
-    return Trainer(cfg, device=device).train()
+def train(cfg: Config, device="cuda", axis: Optional[DataAxis] = None) -> TrainState:
+    return Trainer(cfg, device=device, axis=axis).train()

@@ -77,21 +77,29 @@ def save_images(images: Array, path: str, nrow: Optional[int] = None) -> None:
 
 
 class MetricWriter:
-    """Metrics as JSONL on disk, and as stdout lines."""
+    """Metrics as JSONL on disk, and as stdout lines.  Over several ranks
+    only rank 0's writer writes (the metrics are global); the others
+    write nothing and create no file."""
 
     def __init__(self, log_dir: str, run_name: str, also_stdout: bool = True,
-                 tensorboard: bool = False):
+                 tensorboard: bool = False, rank: int = 0):
         if tensorboard:
             raise NotImplementedError(
                 "tensorboard=True: the port has no TensorBoard writer yet (it "
                 "needs one without TensorFlow, ROADMAP: a TensorBoard writer); the JSONL log "
                 "under log_dir holds every metric")
-        os.makedirs(log_dir, exist_ok=True)
-        self.path = os.path.join(log_dir, f"{run_name}.jsonl")
-        self._fh = open(self.path, "a", buffering=1)
+        self.enabled = rank == 0
         self.also_stdout = also_stdout
+        self.path = os.path.join(log_dir, f"{run_name}.jsonl")
+        self._fh = None
+        if not self.enabled:
+            return
+        os.makedirs(log_dir, exist_ok=True)
+        self._fh = open(self.path, "a", buffering=1)
 
     def write(self, step: int, metrics: Dict[str, float]) -> None:
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": time.time(),
                **{k: float(v) for k, v in metrics.items()}}
         self._fh.write(json.dumps(rec) + "\n")
@@ -102,7 +110,8 @@ class MetricWriter:
             print(f"[smmdax_torch] {body}", flush=True)
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
 
 
 class StepTimer:

@@ -60,6 +60,11 @@ def run(world_size: int, task: str, payload: Dict[str, Any], tmp_dir) -> List[An
 
 def _rank_main(rank, world_size, store, task, payload, out):
     torch.set_num_threads(1)
+    if payload.get("cwd"):
+        # a directory of this rank's own: relative paths land there
+        cwd = os.path.join(payload["cwd"], f"rank{rank}")
+        os.makedirs(cwd, exist_ok=True)
+        os.chdir(cwd)
     try:
         axis = init_data_axis("cpu", rank, world_size, store)
         try:
@@ -188,4 +193,136 @@ def dp_suite(axis, payload):
                 step=train_step_case(axis, payload["step"]))
 
 
-TASKS = {"ring_suite": ring_suite, "dp_suite": dp_suite}
+def _np_state(state) -> Dict[str, Dict[str, np.ndarray]]:
+    def np_dict(named):
+        return {n: t.detach().cpu().numpy().copy() for n, t in named}
+
+    return dict(gen=np_dict(state.gen.named_parameters()),
+                gen_stats=np_dict(state.gen.named_buffers()),
+                disc=np_dict(state.disc.named_parameters()),
+                disc_buffers=np_dict(state.disc.named_buffers()),
+                g_params_ema=np_dict((state.g_params_ema or {}).items()),
+                g_stats_ema=np_dict((state.g_stats_ema or {}).items()))
+
+
+def gspmd_case(axis, payload):
+    """``steps`` GSPMD macro-steps of ``data_parallel_train_step`` from the
+    given weights on the GLOBAL batches, with the global draws: the state
+    and each step's metrics."""
+    from smmdax_torch.configs import Config
+    from smmdax_torch.train import create_state, data_parallel_train_step
+    cfg = Config(**payload["cfg"])
+    state = create_state(cfg, device="cpu")
+    if not payload.get("self_draw"):
+        state.gen.load_state_dict(payload["gen"])
+        state.disc.load_state_dict(payload["disc"])
+        if state.g_params_ema is not None:
+            state.g_params_ema = {n: p.detach().clone()
+                                  for n, p in state.gen.named_parameters()}
+            state.g_stats_ema = {n: b.detach().clone() for n, b in state.gen.named_buffers()}
+    step = data_parallel_train_step(cfg, cfg.dsteps, cfg.gsteps, axis)
+    metrics = []
+    for real, noise in zip(payload["reals"], payload["noises"]):
+        state, m = step(state, real, noise=noise)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return dict(metrics=metrics, **_np_state(state))
+
+
+def batchnorm_case(axis, payload):
+    """``BatchNorm`` with the axis on this rank's block of an NCHW batch:
+    the output block, the running statistics after one update, and the
+    block of the gradient of sum(w * y) over the global batch."""
+    from smmdax_torch.nn.layers import BatchNorm
+    x = torch.from_numpy(_block(payload["x"], axis)).requires_grad_()
+    w = torch.from_numpy(_block(payload["w"], axis))
+    bn = BatchNorm(x.shape[1])
+    y = bn(x, train=True, update_stats=True, axis=axis)
+    g, = torch.autograd.grad(torch.sum(w * y), x)
+    return dict(y=y.detach().numpy(), grad=g.numpy(), mean=bn.mean.numpy().copy(),
+                var=bn.var.numpy().copy())
+
+
+def gspmd_suite(axis, payload):
+    return dict(cases=[gspmd_case(axis, c) for c in payload["cases"]],
+                bn=batchnorm_case(axis, payload["bn"]))
+
+
+def _run_record(state) -> Dict[str, Any]:
+    """Everything of a trained state, to compare runs bit for bit: the
+    tensors, the counters and the noise stream's state."""
+    return dict(arrays=_np_state(state), step=state.step, sched_fails=state.sched_fails,
+                counts=(state.d_opt.count, state.g_opt.count),
+                lrs=(float(state.lr_d), float(state.lr_g)),
+                generator=state.generator.get_state().numpy().copy())
+
+
+def _files(root: str) -> List[str]:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def trainer_suite(axis, payload):
+    """The trainer over ranks: who writes (relative directories, in this
+    rank's own working directory), a shard_map resume, scoring, a SIGTERM
+    to rank 1 alone, and the sharded device pool at two dispatch sizes."""
+    import signal
+    from smmdax_torch.configs import Config
+    from smmdax_torch.trainer import Trainer
+    base, root = payload["base"], payload["root"]
+
+    def cfg(run, **kw):
+        dirs = {k: os.path.join(root, run, k) for k in ("checkpoint_dir", "sample_dir",
+                                                        "log_dir")}
+        return Config(**{**base, **dirs, **kw})
+
+    def train(c):
+        return Trainer(c, device="cpu", axis=axis).train()
+
+    out = {}
+    writes = train(Config(**{**base, **payload["writes"]}))
+    out["writes"] = dict(run=_run_record(writes), files=_files(os.getcwd()))
+
+    ring = payload["ring"]
+    m = ring["max_iteration"]
+    full = train(cfg("ring_full", **ring))
+    train(cfg("ring_half", **{**ring, "max_iteration": m // 2, "checkpoint_every": m // 2}))
+    resumed = Trainer(cfg("ring_half", **ring), device="cpu", axis=axis)
+    resumed_from = resumed.state.step
+    out["resume"] = dict(full=_run_record(full), resumed=_run_record(resumed.train()),
+                         resumed_from=resumed_from)
+
+    scorer = Trainer(cfg("scores", **payload["scores"]), device="cpu", axis=axis)
+    scorer.SCORE_CHUNK_IMAGE_BYTES = payload["chunk_bytes"]
+    out["scores"] = [scorer._score(s) for s in (1, 2)]
+
+    sig = Trainer(cfg("sigterm", **payload["sigterm"]), device="cpu", axis=axis)
+    if axis.index == 1:
+        get_step = sig._get_step
+
+        def signalling(dsteps, k):
+            fn = get_step(dsteps, k)
+
+            def step(state, *args):
+                state, metrics = fn(state, *args)
+                if state.step == 2:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return state, metrics
+
+            return step
+
+        sig._get_step = signalling
+    stopped = sig.train()
+    out["sigterm"] = dict(step=stopped.step, saved=sig.ckpt.latest_step())
+
+    pool = payload["pool"]
+    runs = {}
+    for k in (1, 3):
+        t = Trainer(cfg(f"pool_k{k}", **pool, steps_per_dispatch=k), device="cpu", axis=axis)
+        runs[k] = _run_record(t.train())
+        rows = t._dev_data.numpy().copy()
+    out["pool"] = dict(k1=runs[1], k3=runs[3], rows=rows)
+    return out
+
+
+TASKS = {"ring_suite": ring_suite, "dp_suite": dp_suite, "gspmd_suite": gspmd_suite,
+         "trainer_suite": trainer_suite}

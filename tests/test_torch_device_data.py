@@ -3,7 +3,8 @@
 package's: the gather equals JAX's on the same indices, the index draw
 keeps every batch row free of duplicates in its three regimes, the stream
 is the same at any dispatch size and across a resume, it leaves the
-step's noise stream alone, and the modes over several ranks still raise.
+step's noise stream alone, and two shards without their ranks are
+refused while a sharded pool on one device takes the whole pool.
 JAX's threefry index stream cannot be matched, so the indices are held
 to these properties, not to JAX's draws."""
 
@@ -142,5 +143,18 @@ def test_trainer_resumes_exactly(tmp_path, mode, capsys):
                                  dict(data_placement="device", device_data_sharding="sharded")],
                          ids=["several_ranks", "sharded_pool"])
 def test_modes_over_several_ranks_still_raise(bad):
-    with pytest.raises(NotImplementedError, match="ROADMAP: several ranks"):
-        device_data_train_step(Config(**BASE, **bad), 1, 1)
+    """Two shards without their ranks are refused (the step runs on one
+    rank); a sharded pool on one device builds, and gathers from the whole
+    pool as the replicated layout does, as in the JAX package, whose
+    single-device program ignores the layout."""
+    cfg = Config(**BASE, **bad)
+    if cfg.num_data_shards > 1:
+        with pytest.raises(ValueError, match="start one process per rank"):
+            device_data_train_step(cfg, 1, 1)
+        return
+    pool = torch.from_numpy(_pool())
+    a, _ = device_data_train_step(cfg, 1, 1)(create_state(cfg, seed=3, device="cpu"), pool)
+    replicated = cfg.replace(device_data_sharding="replicated")
+    b, _ = device_data_train_step(replicated, 1, 1)(create_state(cfg, seed=3, device="cpu"),
+                                                     pool)
+    _equal_states(a, b)

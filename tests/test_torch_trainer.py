@@ -141,13 +141,20 @@ def test_dispatch_is_k_single_steps():
         dispatch_train_step(cfg, 1, 1, steps_per_dispatch=3)(a, reals[:2])
 
 
-@pytest.mark.parametrize("bad, roadmap", [
-    (dict(num_data_shards=2), "ROADMAP: several ranks"),
-    (dict(num_data_shards=2, on_device_data=True), "ROADMAP: several ranks"),
-    (dict(data_placement="device", device_data_sharding="sharded"), "ROADMAP: several ranks")])
-def test_unported_modes_raise(tmp_path, bad, roadmap):
-    with pytest.raises(NotImplementedError, match=roadmap):
-        Trainer(_cfg(tmp_path, **bad), device="cpu")
+@pytest.mark.parametrize("bad, device, refusal", [
+    (dict(num_data_shards=2), "cpu", "start one process per rank"),
+    (dict(num_data_shards=2, on_device_data=True), "cuda", "CUDA devices are visible"),
+    (dict(data_placement="device", device_data_sharding="sharded"), "cpu", None)])
+def test_unported_modes_raise(tmp_path, bad, device, refusal):
+    """Several ranks are ported: a trainer of two shards without its ranks,
+    or of more shards than cards, is refused; a sharded pool on one device
+    builds (the whole pool, as in the JAX package)."""
+    if refusal is None:
+        trainer = Trainer(_cfg(tmp_path, **bad), device=device)
+        assert trainer.axis is None
+        return
+    with pytest.raises(ValueError, match=refusal):
+        Trainer(_cfg(tmp_path, **bad), device=device)
 
 
 def test_gen_feats_chunked_is_deterministic(tmp_path):
