@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --tree DIR --only profile
     python3 chip_smoke.py --only ranks
+    python3 chip_smoke.py --only inception
 
 (The second form profiles the bf16 steps of phases 3 and 4 of the
 ``smmdax_torch`` in DIR, e.g. an earlier commit unpacked by ``git
 archive``, to compare its kernels' device time with this tree's.  The
-third runs phase 9 alone.)
+third runs phase 9 alone, the fourth phase 10.)
 
 Phases, each fatal on failure:
 
@@ -89,7 +90,26 @@ Phases, each fatal on failure:
    8 in fresh processes equal bit for bit; (c) the sharded device pool,
    K=1 and K=4 bit for bit; (d) ms per macro-step and images/s of the
    GSPMD and ring steps at 2 ranks against one rank at B 128, with the
-   launches per macro-step, and rank 0's device busy and collective time.
+   launches per macro-step, and rank 0's device busy and collective time;
+10. Inception-v3 at full width from random torchvision-schema weights (the
+   repo holds no real ones): (a) the 1000-way torchvision form and the
+   1008-way FID form on the card against the port's own float64
+   evaluation on the CPU, 8 images of 32 px, pool3 and logits within rel
+   1e-4 of their largest entry, under deterministic algorithms, a repeat
+   sweep bit-equal; (b) images/s of ``pool3_and_probs`` at batch 64 and
+   256 over 4,096 32 px images with TF32 off (the scoring path) and on
+   (reported only, with its feature and FID gap), FLOPs per image from
+   ``FlopCounterMode`` and the share of the card's FP32 peak, and the
+   profiler's device busy share; (c) the flags of
+   ``exp/cifar10_sn_smmd_resnet.sh`` through the trainer with only a
+   random-weights ``inception_v3.npz`` in ``--data_dir``, cut to 8
+   macro-steps with one scoring event at the configured 25,000 samples
+   (features left on the card, FID, KID and IS finite), then one at phase
+   5's 2,048; (d) ``python -m smmdax_torch.compute_scores`` in a fresh
+   process on two uint8 sets of 5,000 32 px images with ``--compare``;
+   (e) the trained EMA generator exported at batch 512 and loaded in a
+   fresh process with torch alone, equal to ``sample`` on the same z to
+   1e-6, and images/s of the loaded program against eager ``sample``.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -2132,6 +2152,361 @@ def run_ranks(tmp: str, results: dict, tree: str) -> dict:
     return timing
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Inception-v3 scoring and the generator export
+
+
+INCEPTION_CPU_IMAGES = 8          # (a): card against the CPU's float64, 32 px
+INCEPTION_SWEEP_IMAGES = 4096     # (b): images/s over this many 32 px images
+INCEPTION_BATCHES = (64, 256)
+INCEPTION_RTOL = 1e-4             # of each output's largest entry
+# (c): the flagship's flags with one scoring event at the configured
+# no_of_samples (25,000), then one at phase 5's 2,048
+INCEPTION_TRAIN_CUT_FLAGS = [
+    "--max_iteration", "8", "--warmup_iterations", "4", "--log_every", "4",
+    "--sample_every", "0", "--checkpoint_every", "0", "--score_every", "8"]
+COMPUTE_SCORES_IMAGES = 5000      # (d): per set, uint8, 32 px
+EXPORT_BATCH = 512                # (e)
+EXPORT_ATOL = 1e-6
+EXPORT_TIMED = 20
+# published dense peaks of one H100 SXM (NVIDIA data sheet): float32
+# outside the tensor cores, TF32 on them
+FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+
+
+def _inception_asset(directory: str, seed: int = 0) -> str:
+    """A random-weights torchvision-schema ``inception_v3.npz`` in
+    ``directory`` (the repo holds no real weights)."""
+    import numpy as np
+    from smmdax_torch.eval.inception import random_state_dict
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "inception_v3.npz")
+    np.savez(path, **random_state_dict(seed))
+    return path
+
+
+def _rel_err(got, want) -> float:
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def check_inception_card_vs_cpu(results: dict) -> None:
+    """(a) Full-width Inception on the card against the port's own float64
+    evaluation on the CPU, torchvision (1000-way) and FID (1008-way)
+    forms, under deterministic algorithms; a repeat sweep bit-equal."""
+    import numpy as np
+    import torch
+    from smmdax_torch.eval.inception import (InceptionV3, convert_torchvision_state_dict,
+                                             random_state_dict)
+    imgs = np.random.default_rng(10).uniform(
+        -1, 1, (INCEPTION_CPU_IMAGES, 32, 32, 3)).astype(np.float32)
+    out = {}
+    for label, classes in (("torchvision", 1000), ("fid", 1008)):
+        params = convert_torchvision_state_dict(random_state_dict(0, num_classes=classes))
+        net = InceptionV3(params, device="cuda")
+        if net.fid_semantics != (classes == 1008):
+            fail(f"inception {label}: fid_semantics {net.fid_semantics} from a {classes}-way fc")
+        with deterministic_torch():
+            pool, logits = net.pool3_and_logits(imgs)
+            pool2, logits2 = net.pool3_and_logits(imgs)
+        t0 = time.perf_counter()
+        ref = InceptionV3(params, device="cpu", dtype=torch.float64)
+        with torch.no_grad():
+            ref_pool, ref_logits = ref(torch.from_numpy(imgs))
+        cpu_s = time.perf_counter() - t0
+        errs = dict(pool3=_rel_err(pool, ref_pool), logits=_rel_err(logits, ref_logits))
+        repeat = bool(np.array_equal(pool, pool2) and np.array_equal(logits, logits2))
+        finite = bool(np.isfinite(pool).all() and np.isfinite(logits).all())
+        out[label] = dict(rel_err=errs, repeat_bit_equal=repeat, cpu_float64_s=cpu_s,
+                          fid_semantics=net.fid_semantics)
+        log(f"inception {label} ({classes}-way, fid_semantics {net.fid_semantics}): card "
+            f"float32 against CPU float64 on {len(imgs)} 32 px images: pool3 "
+            f"{errs['pool3']:.3g}, logits {errs['logits']:.3g} of the largest entry (gate "
+            f"{INCEPTION_RTOL:g}); repeat sweep bit-equal {repeat}; CPU {cpu_s:.1f} s")
+        if not finite or not repeat or max(errs.values()) > INCEPTION_RTOL:
+            fail(f"inception {label}: {out[label]}, finite {finite}")
+    results["inception"]["card_vs_cpu"] = out
+
+
+def _inception_sweep_s(net, imgs) -> tuple:
+    """Seconds of one ``pool3_and_probs`` sweep of ``imgs`` left on the card
+    (after one warm-up batch), and its outputs."""
+    import torch
+    net.pool3_and_probs(imgs[:net.batch], fetch=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool, probs = net.pool3_and_probs(imgs, fetch=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, pool, probs
+
+
+def time_inception(results: dict) -> None:
+    """(b) images/s of ``pool3_and_probs`` at batch 64 and 256 over
+    ``INCEPTION_SWEEP_IMAGES`` 32 px images on the card, TF32 off (the
+    scoring path, gated: finite, and the two batches agree) and on
+    (reported: time, feature and FID gap); the profiler's device busy share
+    of the batch-64 sweep; FLOPs per image from FlopCounterMode."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    from smmdax_torch.eval import fid_from_features, kid_from_features
+    from smmdax_torch.eval.inception import (InceptionV3, convert_torchvision_state_dict,
+                                             random_state_dict)
+    params = convert_torchvision_state_dict(random_state_dict(0))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    imgs = torch.rand((INCEPTION_SWEEP_IMAGES, 32, 32, 3), generator=g, device="cuda") * 2 - 1
+    half = INCEPTION_SWEEP_IMAGES // 2
+    arms, feats = {}, {}
+    for batch in INCEPTION_BATCHES:
+        for tf32 in (False, True):
+            net = InceptionV3(params, batch=batch, device="cuda", allow_tf32=tf32)
+            secs, pool, probs = _inception_sweep_s(net, imgs)
+            feats[(batch, tf32)] = pool
+            arm = arms[f"batch {batch}, tf32 {'on' if tf32 else 'off'}"] = dict(
+                images_per_s=INCEPTION_SWEEP_IMAGES / secs, sweep_s=secs)
+            if batch == INCEPTION_BATCHES[0]:
+                # TF32's effect on the scores: FID / KID of the two halves
+                arm.update(fid_halves=fid_from_features(pool[:half], pool[half:]),
+                           kid_halves=kid_from_features(pool[:half], pool[half:],
+                                                        n_subsets=10)[0])
+            if not (bool(torch.isfinite(pool).all()) and bool(torch.isfinite(probs).all())):
+                fail(f"inception sweep at batch {batch}, tf32 {tf32}: non-finite outputs")
+    small, large = INCEPTION_BATCHES
+    off = feats[(small, False)].cpu().numpy()
+    batch_err = _rel_err(feats[(large, False)].cpu().numpy(), off)
+    tf32_err = _rel_err(feats[(small, True)].cpu().numpy(), off)
+    if batch_err > INCEPTION_RTOL:
+        fail(f"inception: batch {large} features {batch_err:.3g} from batch {small}'s")
+
+    net = InceptionV3(params, batch=64, device="cuda")
+    with FlopCounterMode(display=False) as counter:
+        net.pool3_and_probs(imgs[:64], fetch=False)
+    flops_per_image = counter.get_total_flops() / 64
+    secs = arms["batch 64, tf32 off"]["sweep_s"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        net.pool3_and_probs(imgs, fetch=False)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    for label, arm in arms.items():
+        achieved = flops_per_image * arm["images_per_s"]
+        arm["achieved_tflops"] = achieved / 1e12
+        arm["fp32_peak_share"] = achieved / FP32_FLOPS_PER_S
+        arm["tf32_peak_share"] = achieved / TF32_FLOPS_PER_S
+    out = dict(arms=arms, flops_per_image=flops_per_image,
+               device_busy_s=busy_s, device_busy_share=busy_s / secs,
+               batch_rel_err=batch_err, tf32_vs_fp32_rel_err=tf32_err,
+               top=[dict(name=e.key[:90], calls=e.count,
+                         device_ms=e.self_device_time_total / 1e3) for e in top])
+    results["inception"]["throughput"] = out
+    for label, arm in arms.items():
+        log(f"inception {label}: {arm['images_per_s']:.1f} images/s over "
+            f"{INCEPTION_SWEEP_IMAGES} 32 px images ({arm['achieved_tflops']:.2f} TFLOP/s, "
+            f"{100 * arm['fp32_peak_share']:.1f}% of the 67 TFLOP/s FP32 peak, "
+            f"{100 * arm['tf32_peak_share']:.2f}% of the 495 TFLOP/s TF32 peak)"
+            + (f"; FID of the two halves {arm['fid_halves']:.6g}, KID {arm['kid_halves']:.6g}"
+               if "fid_halves" in arm else ""))
+    log(f"inception: {flops_per_image / 1e9:.3f} GFLOP per 299 px image (FlopCounterMode); "
+        f"batch {INCEPTION_BATCHES[1]} features {batch_err:.3g} and TF32 features "
+        f"{tf32_err:.3g} of the largest "
+        f"entry from batch 64's TF32-off; device busy {busy_s:.3f} s of the unprofiled "
+        f"{secs:.3f} s sweep ({100 * busy_s / secs:.1f}%)")
+    for r in out["top"]:
+        log(f"  {r['device_ms']:9.2f} ms {r['calls']:6d}x  {r['name']}")
+
+
+def run_inception_trainer(tmp: str, results: dict) -> dict:
+    """(c) The flagship's flags through the trainer with only a
+    random-weights ``inception_v3.npz`` in ``--data_dir`` (cifar10 then
+    trains on synthetic data and scores ``no_of_samples`` = 25,000), one
+    scoring event, the features left on the card; then the same at 2,048
+    samples.  Returns the kernels' launches of the first run."""
+    import torch
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.cuda import mmd_kernel as mk
+    from smmdax_torch.eval.features import InceptionFeatures
+    from smmdax_torch.trainer import Trainer
+    data_dir = os.path.join(tmp, "data")
+    _inception_asset(data_dir)
+    out = {}
+    for label, extra in (("25000", []), ("2048", ["--no_of_samples", "2048", "--max_iteration",
+                                                   "4", "--score_every", "4"])):
+        dirs = [x for d in ("checkpoint", "log", "sample")
+                for x in (f"--{d}_dir", os.path.join(tmp, label, d))]
+        cfg = config_from_args(FLAGSHIP_TRAIN_FLAGS + INCEPTION_TRAIN_CUT_FLAGS + dirs
+                               + ["--data_dir", data_dir] + extra)
+        trainer = Trainer(cfg, device="cuda")
+        score_s = []
+        _timed(trainer, "_score", score_s)
+        counters = mk.kernel_launch_counters()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in counters}
+        rows = [r for r in _log_rows(trainer) if "fid" in r]
+        ext = trainer._extractor
+        if not isinstance(ext, InceptionFeatures) or ext.name != "inception_v3":
+            fail(f"trainer {label}: scored with {getattr(ext, 'name', ext)}, not inception_v3")
+        if len(rows) != 1 or not {"fid", "kid", "kid_std", "inception_score",
+                                  "inception_score_std"} <= set(rows[0]) or not all(
+                math.isfinite(v) for v in rows[0].values()):
+            fail(f"trainer {label}: score rows {rows}")
+        if trainer._real_feats.shape != (cfg.no_of_samples, 2048) or not isinstance(
+                trainer._real_feats, torch.Tensor) or trainer._real_feats.device.type != "cuda":
+            fail(f"trainer {label}: real features {type(trainer._real_feats)} "
+                 f"{tuple(trainer._real_feats.shape)}, not left on the card")
+        missing = [k for k in ("pair_sum", "pair_sum_grad_a") if launches[k] == 0]
+        if missing:
+            fail(f"trainer {label}: did not launch {missing} ({launches})")
+        out[label] = dict(samples=cfg.no_of_samples, ms_per_score=1e3 * score_s[0],
+                          extractor=ext.name, score_row=rows[0], launches=launches,
+                          wall_s=wall)
+        log(f"inception trainer at {cfg.no_of_samples} samples: scoring event "
+            f"{1e3 * score_s[0]:.1f} ms (real and fake sets, {ext.name}); FID "
+            f"{rows[0]['fid']:.6g}, KID {rows[0]['kid']:.6g}, IS "
+            f"{rows[0]['inception_score']:.6g}; run {wall:.2f} s; launches {launches}")
+        out[label].update(state=state, cfg=cfg)
+    random_conv = results.get("trainer", {}).get("ms_per_score")
+    log(f"inception trainer: 2,048-sample event {out['2048']['ms_per_score']:.1f} ms against "
+        f"phase 5's random-conv events {random_conv} ms")
+    results["inception"]["trainer"] = {
+        k: {kk: vv for kk, vv in v.items() if kk not in ("state", "cfg")} for k, v in out.items()}
+    results["inception"]["trainer"]["random_conv_ms_per_score"] = random_conv
+    return out
+
+
+def run_compute_scores(tmp: str, results: dict, tree: str) -> None:
+    """(d) ``python -m smmdax_torch.compute_scores`` in a fresh process on
+    two uint8 .npy sets of 32 px images, with ``--compare`` a third, with a
+    random-weights Inception asset: FID, KID and IS from inception_v3."""
+    import numpy as np
+    from smmdax_torch.data import SyntheticImages
+    data_dir = os.path.join(tmp, "data")
+    _inception_asset(data_dir)
+    src = SyntheticImages(32, 3, seed=0)
+    n = COMPUTE_SCORES_IMAGES
+    sets = {"real": src.batch_u8(n, key=1), "fake": src.batch_u8(n, key=2),
+            "other": np.random.default_rng(3).integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)}
+    paths = {}
+    for name, arr in sets.items():
+        paths[name] = os.path.join(tmp, f"{name}.npy")
+        np.save(paths[name], arr)
+    cmd = [sys.executable, "-m", "smmdax_torch.compute_scores", paths["real"], paths["fake"],
+           "--compare", paths["other"], "--data_dir", data_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=tree))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0:
+        fail(f"compute_scores exited {proc.returncode}: {proc.stderr[-2000:]}")
+    want = ["FID", "KID", "IS", "relative-MMD test (FAKE closer than COMPARE?)", "(extractor"]
+    if [line.split(":")[0] for line in lines[-5:]] != want or lines[-1] != (
+            f"(extractor: inception_v3, n_real={n}, n_fake={n})"):
+        fail(f"compute_scores printed {lines}")
+    values = [float(line.split()[1]) for line in lines[-5:-2]]
+    if not all(math.isfinite(v) for v in values):
+        fail(f"compute_scores: non-finite scores {lines}")
+    results["inception"]["compute_scores"] = dict(wall_s=wall, lines=lines[-5:])
+    log(f"compute_scores on 2 x {n} (+ {n} --compare) 32 px images, fresh process: "
+        f"{wall:.1f} s of wall; " + " | ".join(lines[-5:]))
+
+
+def _export_worker(path: str, z_path: str, out_path: str) -> None:
+    """Load an exported generator in a fresh process with torch alone (no
+    smmdax_torch), run it on the saved z, and time it."""
+    import torch
+    # a spawned process starts with PyTorch's defaults (cuDNN in TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.export.load(path).module()
+    z = torch.load(z_path, weights_only=True)
+    with torch.no_grad():
+        imgs = gen(z)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXPORT_TIMED):
+            gen(z)
+        torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / EXPORT_TIMED
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "smmdax_torch")
+    torch.save(dict(images=imgs.cpu(), secs=secs, smmdax_torch_modules=loaded), out_path)
+
+
+def check_export(tmp: str, cfg, state, results: dict) -> None:
+    """(e) The flagship's EMA generator exported at batch 512 on the card,
+    loaded in a fresh process; equal to ``sample`` on the same z, and
+    images/s of the loaded program against eager ``sample``."""
+    import torch
+    from smmdax_torch.export import export_generator
+    from smmdax_torch.train import sample
+    cfg = cfg.replace(batch_size=EXPORT_BATCH)        # sample decodes one batch
+    t0 = time.perf_counter()
+    program = export_generator(cfg, state, EXPORT_BATCH)
+    path = os.path.join(tmp, "gen.pt2")
+    torch.export.save(program, path)
+    export_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(21)
+    z = torch.rand((EXPORT_BATCH, cfg.z_dim), generator=g, device="cuda") * 2.0 - 1.0
+    want = sample(cfg, state, torch.Generator(device="cuda").manual_seed(21), EXPORT_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EXPORT_TIMED):
+        sample(cfg, state, torch.Generator(device="cuda").manual_seed(21), EXPORT_BATCH)
+    torch.cuda.synchronize()
+    eager_s = (time.perf_counter() - t0) / EXPORT_TIMED
+    z_path, out_path = os.path.join(tmp, "z.pt"), os.path.join(tmp, "served.pt")
+    torch.save(z, z_path)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_export_worker, args=(path, z_path, out_path))
+    proc.start()
+    proc.join(300)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    if proc.exitcode != 0 or not os.path.exists(out_path):
+        fail(f"export: the loading process exited with {proc.exitcode}")
+    served = torch.load(out_path, weights_only=True)
+    err = float((served["images"] - want.cpu()).abs().max())
+    if served["smmdax_torch_modules"]:
+        fail(f"export: the loading process imported {served['smmdax_torch_modules']}")
+    if tuple(served["images"].shape) != (EXPORT_BATCH,) + cfg.image_shape or not err <= EXPORT_ATOL:
+        fail(f"export: served images {tuple(served['images'].shape)} lie {err:.3g} from sample")
+    out = dict(max_abs_err=err, export_s=export_s, mb=os.path.getsize(path) / 1e6,
+               loaded_images_per_s=EXPORT_BATCH / served["secs"],
+               eager_sample_images_per_s=EXPORT_BATCH / eager_s)
+    results["inception"]["export"] = out
+    log(f"export: the flagship's EMA generator at batch {EXPORT_BATCH}, exported and saved in "
+        f"{export_s:.1f} s ({out['mb']:.1f} MB), loaded in a fresh process with torch alone: "
+        f"{err:.3g} max abs from sample on the same z (gate {EXPORT_ATOL:g}); "
+        f"{out['loaded_images_per_s']:.1f} images/s against eager sample's "
+        f"{out['eager_sample_images_per_s']:.1f}")
+
+
+def run_inception(tmp: str, results: dict, tree: str) -> dict:
+    """Phase 10 (see the module docstring).  Returns the kernels' launches
+    in the 25,000-sample trainer run."""
+    t_phase = time.perf_counter()
+    results["inception"] = {}
+    check_inception_card_vs_cpu(results)
+    time_inception(results)
+    runs = run_inception_trainer(tmp, results)
+    run_compute_scores(tmp, results, tree)
+    check_export(tmp, runs["25000"]["cfg"], runs["25000"]["state"], results)
+    results["inception"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"inception phase: {results['inception']['phase_s']:.1f} s")
+    return runs["25000"]["launches"]
+
+
 def profile_only(results: dict) -> int:
     """The timed and profiled bf16 macro-steps of phases 3 and 4 alone."""
     import torch
@@ -2171,11 +2546,12 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", default=HERE,
                         help="import smmdax_torch from this checkout (default: beside "
                              "this script), e.g. an earlier commit unpacked by git archive")
-    parser.add_argument("--only", choices=("profile", "ranks"), default=None,
+    parser.add_argument("--only", choices=("profile", "ranks", "inception"), default=None,
                         help="profile: build, then only the timed and profiled bf16 "
                              "steps of phases 3 and 4; prints the launches and device "
                              "us per launch of each csrc kernel, and no ok line; "
-                             "ranks: build, then phase 9 alone, and no ok line")
+                             "ranks: build, then phase 9 alone, and no ok line; "
+                             "inception: build, then phase 10 alone, and no ok line")
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
     # cuBLAS reads it when CUDA starts: phase 5 runs deterministic
@@ -2210,9 +2586,9 @@ def main(argv=None) -> int:
     results["build_s"] = secs
     if args.only == "profile":
         return profile_only(results)
-    if args.only == "ranks":
+    if args.only in ("ranks", "inception"):
         with tempfile.TemporaryDirectory() as tmp:
-            run_ranks(tmp, results, tree)
+            (run_ranks if args.only == "ranks" else run_inception)(tmp, results, tree)
         write_results(args.out, results)
         print(card_line(), flush=True)
         return 0
@@ -2293,6 +2669,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ranks = run_ranks(tmp, results, tree)
 
+    # phase 10
+    with tempfile.TemporaryDirectory() as tmp:
+        inception = run_inception(tmp, results, tree)
+
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
 
@@ -2344,6 +2724,8 @@ def main(argv=None) -> int:
         kern["two_rank_device_us_per_launch"] = {
             label: t["profile"]["csrc_device_us_per_launch"].get(counter)
             for label, t in ranks.items()}
+        # phase 10: the flagship run with one 25,000-sample Inception event
+        kern["inception_trainer_launches"] = inception[counter]
     card = card_line()
     results.update(kernels=kernels, card=card)
     write_results(args.out, results)

@@ -111,3 +111,16 @@ def random_conv_weights_from_jax(extractor, c_in: int = 3) -> List[Array]:
     if extractor._params is None:
         extractor._init(c_in)
     return [np.asarray(w, np.float32) for w in extractor._params]
+
+
+def inception_params_from_jax(params: Mapping[str, Mapping[str, Any]]) -> Dict[str, Dict[str, Array]]:
+    """The JAX package's folded Inception params (``{name: {"w": HWIO,
+    "b"}, "fc": {"w": (2048, k), "b"}}``, leaves as numpy) in the port's
+    layout: conv kernels OIHW, ``fc`` unchanged; pass them to
+    ``smmdax_torch.eval.inception.InceptionV3``."""
+    out: Dict[str, Dict[str, Array]] = {}
+    for name, leaves in params.items():
+        w = np.asarray(leaves["w"], np.float32)
+        out[name] = {"w": np.ascontiguousarray(w if name == "fc" else w.transpose(3, 2, 0, 1)),
+                     "b": np.asarray(leaves["b"], np.float32)}
+    return out

@@ -1,7 +1,10 @@
 """Feature extractors for FID/KID/IS (port of ``smmdax/eval/features.py``).
 
-``RandomConvFeatures`` is the offline extractor: a fixed random 4-layer
-convolutional projection, global-mean-pooled.  FID/KID on its features
+``InceptionFeatures`` runs Inception-v3 (``smmdax_torch.eval.inception``)
+when its weights asset is present: pool3 features for FID/KID, class
+probabilities for the Inception Score.  ``RandomConvFeatures`` is the
+offline extractor: a fixed random 4-layer convolutional projection,
+global-mean-pooled.  FID/KID on its features
 still rank distributions by distance, so the scheduler and the score math
 run without any asset; they are not comparable to Inception-based numbers.
 
@@ -11,10 +14,6 @@ default random-conv scores differ in absolute value from the JAX
 package's default ones.  With the same weights (``weights=``, e.g. from
 ``smmdax_torch.convert.random_conv_weights_from_jax``) the features, and
 so the scores, are equal.
-
-The Inception-v3 extractor is not ported yet (ROADMAP: Inception-v3): when its
-weights asset is present, ``get_feature_extractor`` raises instead of
-scoring with random features.
 """
 
 from __future__ import annotations
@@ -111,6 +110,48 @@ class RandomConvFeatures:
         return feats.cpu().numpy() if fetch else feats
 
 
+class InceptionFeatures:
+    """Inception-v3 pool3 features + class probs from the weights asset at
+    ``weights_path`` (a torchvision ``inception_v3`` state dict as ``.pt`` /
+    ``.pth`` / ``.npz``, or the frozen TF FID graph ``.pb``), on ``device``.
+    Raises FileNotFoundError naming the asset when it is absent.
+
+    ``__call__`` returns pool3 (2048-d) for FID/KID, ``probs`` the softmax
+    for the Inception Score, ``features_and_probs`` both from one sweep;
+    ``fetch=False`` leaves them on the device.  ``fid_semantics=None``
+    detects the FID graph's pooling from the fc width."""
+
+    name = "inception_v3"
+    feature_dim = 2048
+
+    def __init__(self, weights_path: str, batch: int = 64,
+                 fid_semantics: Optional[bool] = None, device="cuda"):
+        if not os.path.exists(weights_path):
+            raise FileNotFoundError(
+                f"Inception weights not found at {weights_path}. Place a "
+                "torchvision inception_v3 state_dict (.pt / .pth / an .npz of "
+                "the same tensors) or the frozen TF FID graph "
+                "(classify_image_graph_def.pb) there to score with Inception "
+                "FID/KID/IS (get_feature_extractor falls back to "
+                "RandomConvFeatures otherwise).")
+        from smmdax_torch.eval.inception import InceptionV3, load_params
+        device = resolve_device(device)
+        self._net = InceptionV3(load_params(weights_path), batch=batch,
+                                fid_semantics=fid_semantics, device=device)
+        self.batch = batch
+
+    def __call__(self, images, fetch: bool = True):
+        return self._net.pool3(images, fetch=fetch)
+
+    def probs(self, images, fetch: bool = True):
+        """Softmax class probabilities (for the Inception Score)."""
+        return self._net.probs(images, fetch=fetch)
+
+    def features_and_probs(self, images, fetch: bool = True):
+        """(pool3, probs) from one network sweep (the scoring path)."""
+        return self._net.pool3_and_probs(images, fetch=fetch)
+
+
 def _takes_fetch(fn) -> bool:
     """Whether ``fn`` takes a ``fetch`` keyword (signature inspection, so a
     TypeError inside the sweep is never mistaken for its absence)."""
@@ -153,14 +194,19 @@ def find_inception_weights(data_dir: str = "./data") -> Optional[str]:
 
 
 def get_feature_extractor(data_dir: str = "./data", prefer_inception: bool = True,
+                          fid_semantics: Optional[bool] = None,
                           device="cuda") -> FeatureExtractor:
-    """The offline random-conv extractor on ``device``.  Raises when an
-    Inception asset is present (and preferred): Inception is not ported yet,
-    and silently scoring with random features would change the numbers."""
+    """Inception on ``device`` if its weights asset exists under
+    ``data_dir`` (and is preferred), else the offline random-conv
+    extractor.  An asset that fails to load is reported and falls back to
+    random conv features, as in the JAX package.  ``fid_semantics`` goes to
+    ``InceptionFeatures`` (None = detect from the fc width)."""
+    device = resolve_device(device)
     path = find_inception_weights(data_dir)
     if prefer_inception and path is not None:
-        raise NotImplementedError(
-            f"Inception weights found at {path}, but the port's Inception "
-            "extractor is not ported yet (ROADMAP: Inception-v3); move the asset away "
-            "or pass prefer_inception=False to score with random conv features")
+        try:
+            return InceptionFeatures(path, fid_semantics=fid_semantics, device=device)
+        except Exception as e:          # corrupt / mismatched file, ...
+            print(f"[smmdax_torch.eval] Inception load failed ({e}); "
+                  "falling back to RandomConvFeatures")
     return RandomConvFeatures(device=device)

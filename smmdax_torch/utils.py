@@ -3,8 +3,9 @@
 
 The machine with the card has neither PIL nor TensorFlow, so PNGs are
 written with the standard library (``zlib`` + ``struct``: 8-bit grey or
-RGB, no interlace), and ``MetricWriter(tensorboard=True)`` raises instead
-of writing event files.
+RGB, no interlace) and read the same way (8-bit grey, RGB or RGBA, no
+interlace, every row filter), and ``MetricWriter(tensorboard=True)``
+raises instead of writing event files.
 """
 
 from __future__ import annotations
@@ -64,6 +65,74 @@ def write_png(path: str, pixels: Array) -> None:
         f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
                 + _png_chunk(b"IDAT", zlib.compress(raw, 6))
                 + _png_chunk(b"IEND", b""))
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}          # colour type -> channels
+
+
+def read_png(path: str) -> Array:
+    """(H, W, 3) uint8 RGB pixels of an 8-bit non-interlaced grey, RGB or
+    RGBA PNG: grey is repeated over the three channels and alpha dropped,
+    as PIL's ``convert("RGB")`` does.  Other PNGs raise
+    NotImplementedError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or interlace or color not in _PNG_CHANNELS:
+        raise NotImplementedError(
+            f"{path}: PNG of bit depth {depth}, colour type {color}, interlace "
+            f"{interlace}; the port reads 8-bit non-interlaced grey, RGB and RGBA "
+            "(ROADMAP: image readers)")
+    bpp = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * bpp)
+    out = np.zeros((h, w * bpp), np.uint8)
+    prior = np.zeros(w * bpp, np.int32)
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if kind == 0:                                    # None
+            cur = line
+        elif kind == 1:                                  # Sub: running sum per channel
+            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+        elif kind == 2:                                  # Up
+            cur = (line + prior) & 0xFF
+        elif kind in (3, 4):                             # Average, Paeth: left to right
+            cur = line.copy()
+            left = np.zeros(bpp, np.int32)
+            up_left = np.zeros(bpp, np.int32)
+            for x in range(0, w * bpp, bpp):
+                up = prior[x:x + bpp]
+                if kind == 3:
+                    pred = (left + up) >> 1
+                else:
+                    p = left + up - up_left
+                    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+                    pred = np.where((pa <= pb) & (pa <= pc), left,
+                                    np.where(pb <= pc, up, up_left))
+                cur[x:x + bpp] = (line[x:x + bpp] + pred) & 0xFF
+                left, up_left = cur[x:x + bpp], up
+        else:
+            raise ValueError(f"{path}: row {y} has filter type {kind}")
+        out[y] = cur
+        prior = cur
+    pixels = out.reshape(h, w, bpp)
+    if bpp == 1:
+        return np.repeat(pixels, 3, axis=2)
+    return np.ascontiguousarray(pixels[..., :3])
 
 
 def save_images(images: Array, path: str, nrow: Optional[int] = None) -> None:

@@ -1,5 +1,5 @@
-"""The port's random-conv feature extractor, extractor dispatch and PNG /
-metric writers (``smmdax_torch.eval.features``, ``smmdax_torch.utils``)
+"""The port's random-conv feature extractor, extractor dispatch (Inception
+when its asset loads) and PNG / metric writers (``smmdax_torch.eval.features``, ``smmdax_torch.utils``)
 against the JAX package.
 
 ``RandomConvFeatures`` loaded with the JAX extractor's weights is held to
@@ -61,15 +61,30 @@ def test_default_weights_fixed_by_seed():
     assert not np.allclose(a, c)
 
 
-def test_get_feature_extractor(tmp_path):
+def test_get_feature_extractor(tmp_path, capsys):
+    """As the JAX package: no asset gives random conv features; a valid
+    ``.npz`` gives Inception; a corrupt one prints and falls back to random
+    conv; ``prefer_inception=False`` gives random conv."""
+    from smmdax.eval.inception import random_state_dict
     ext = tfeatures.get_feature_extractor(str(tmp_path), device="cpu")
     assert isinstance(ext, tfeatures.RandomConvFeatures) and ext.name == "random_conv"
-    (tmp_path / "inception_v3.pt").write_bytes(b"\0")
-    assert tfeatures.find_inception_weights(str(tmp_path)).endswith("inception_v3.pt")
-    with pytest.raises(NotImplementedError, match="Inception"):
-        tfeatures.get_feature_extractor(str(tmp_path), device="cpu")
+    np.savez(tmp_path / "inception_v3.npz", **random_state_dict(seed=2, include_aux=False))
+    assert tfeatures.find_inception_weights(str(tmp_path)).endswith("inception_v3.npz")
+    ext = tfeatures.get_feature_extractor(str(tmp_path), device="cpu")
+    assert isinstance(ext, tfeatures.InceptionFeatures) and ext.name == "inception_v3"
+    assert ext.batch == 64 and ext.feature_dim == 2048 and ext._net.fid_semantics is False
+    assert tfeatures.get_feature_extractor(str(tmp_path), fid_semantics=True,
+                                           device="cpu")._net.fid_semantics is True
     ext = tfeatures.get_feature_extractor(str(tmp_path), prefer_inception=False, device="cpu")
     assert isinstance(ext, tfeatures.RandomConvFeatures)
+    (tmp_path / "inception_v3.pt").write_bytes(b"\0")      # found first, and corrupt
+    assert tfeatures.find_inception_weights(str(tmp_path)).endswith("inception_v3.pt")
+    capsys.readouterr()
+    ext = tfeatures.get_feature_extractor(str(tmp_path), device="cpu")
+    assert isinstance(ext, tfeatures.RandomConvFeatures)
+    assert "Inception load failed" in capsys.readouterr().out
+    with pytest.raises(FileNotFoundError, match="inception_v3.pth"):
+        tfeatures.InceptionFeatures(str(tmp_path / "inception_v3.pth"), device="cpu")
 
 
 def test_extract_with_probs_threads_fetch():
