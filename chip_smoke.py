@@ -5,11 +5,12 @@
     python3 chip_smoke.py --tree DIR --only profile
     python3 chip_smoke.py --only ranks
     python3 chip_smoke.py --only inception
+    python3 chip_smoke.py --only formats
 
 (The second form profiles the bf16 steps of phases 3 and 4 of the
 ``smmdax_torch`` in DIR, e.g. an earlier commit unpacked by ``git
 archive``, to compare its kernels' device time with this tree's.  The
-third runs phase 9 alone, the fourth phase 10.)
+third runs phase 9 alone, the fourth phase 10, the fifth phase 11.)
 
 Phases, each fatal on failure:
 
@@ -109,7 +110,35 @@ Phases, each fatal on failure:
    process on two uint8 sets of 5,000 32 px images with ``--compare``;
    (e) the trained EMA generator exported at batch 512 and loaded in a
    fresh process with torch alone, equal to ``sample`` on the same z to
-   1e-6, and images/s of the loaded program against eager ``sample``.
+   1e-6, and images/s of the loaded program against eager ``sample``;
+11. real image formats, from the committed JPEG fixtures
+   (``tests/fixtures/port_images``, with PIL's hashes in their manifest):
+   (a) the native JPEG decoder built with g++ from the checkout (its
+   build time printed); every fixture decoded to PIL's recorded bytes and
+   to the plain decoder's, its ``center_crop_resize`` at 160 (crop 160) and
+   64 (the shorter side) equal to PIL's recorded hashes and to the plain
+   resize, the refused layouts (progressive, CMYK) raising in both
+   decoders; ms per image of decode and crop / resize at 1 and 8 threads,
+   178x218 and 256x256, the latter also with the numpy resize in place of
+   the native one (8 threads); (b) a CelebA-layout directory of 1,024 JPEGs, an
+   LSUN LMDB of 1,024 records (the port's ``write_lmdb``) and a TFRecord
+   shard of 256 encoded records framed here, all copies of the fixtures;
+   (c) ``exp/celeba160_sn_smmd_resnet.sh``'s flags at full width (gf / df
+   32, B 64, 160 px, K 4, bf16, hutchinson) host-fed from the JPEG
+   directory, cut to 12 macro-steps with a checkpoint at 6, the drawn
+   files' crops held to PIL's hashes, a run stopped at 6 and resumed in a
+   fresh process equal bit for bit; trainer images/s (all the images of
+   the log windows after warm-up over all their wall time), host ms per
+   macro-batch (384 decodes and crops) against ms per macro-step, and the
+   launches of kernels 1-2; (d) ``exp/real_formats_rehearsal.sh``'s
+   ``lsun_lmdb_host`` arm (mmd, DCGAN, 64 px) from the LMDB, 48 macro-steps
+   (images/s over the windows after the first, as for every arm), the packing
+   tool ``python -m smmdax_torch.data.convert lsun`` in a fresh process
+   (images/s, the cache equal to the reader's decodes), then its
+   ``lsun_packed_device`` arm (sn-smmd, ResNet, 64 px, K 4, device-resident),
+   images/s of both; (e) a few macro-steps of the ResNet at 64 px from the
+   ImageNet-64 TFRecord shard, and one macro-batch of its records on 1 and
+   on 8 decode threads.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -2507,6 +2536,465 @@ def run_inception(tmp: str, results: dict, tree: str) -> dict:
     return runs["25000"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: real image formats
+
+
+FIXTURE_DIR = os.path.join("tests", "fixtures", "port_images")
+FORMAT_FILES = 1024            # JPEGs of the CelebA directory, records of the LSUN LMDB
+TFRECORD_RECORDS = 256         # records of the ImageNet-64 TFRecord shard
+DECODE_TIMING_IMAGES = 384     # one celeba160 macro-batch: (5 + 1) x 64
+# exp/celeba160_sn_smmd_resnet.sh, then the cut to 12 macro-steps with a
+# checkpoint at 6 (no scoring event falls inside 12 steps)
+CELEBA160_TRAIN_FLAGS = [
+    "--is_train", "true", "--dataset", "celeba", "--architecture", "resnet",
+    "--model", "sn-smmd", "--kernel", "rq", "--batch_size", "64", "--output_size", "160",
+    "--dof_dim", "16", "--gf_dim", "32", "--df_dim", "32", "--learning_rate", "1e-4",
+    "--dsteps", "5", "--scaling_coeff", "10.0", "--max_iteration", "150000",
+    "--MMD_lr_scheduler", "true", "--compute_scores", "true", "--score_every", "5000",
+    "--compute_dtype", "bfloat16", "--scaling_grad_estimator", "hutchinson",
+    "--remat", "false", "--steps_per_dispatch", "4", "--ema_decay", "0.9999"]
+CELEBA160_CUT_FLAGS = [
+    "--warmup_iterations", "4", "--log_every", "4", "--sample_every", "0",
+    "--checkpoint_every", "6", "--compute_scores", "false", "--MMD_lr_scheduler", "false"]
+CELEBA160_STEPS = 12
+# exp/real_formats_rehearsal.sh: its common flags, cut to FORMAT_ARM_STEPS
+# macro-steps logged every 8 (the host-fed LMDB arm to LSUN_LMDB_STEPS, so
+# that its windows after the first can settle), and its lsun_lmdb_host,
+# lsun_packed_device and (from a TFRecord shard) imagenet64 arms.  Like the
+# rehearsal's runs, the cut arms run inside the default 500-step warm-up
+# (start_dsteps 10 critic updates per macro-step)
+FORMAT_ARM_STEPS = 24
+LSUN_LMDB_STEPS = 48
+REHEARSAL_FLAGS = ["--is_train", "true", "--compute_scores", "false",
+                   "--checkpoint_every", "0", "--random_seed", "7",
+                   "--log_every", "8", "--sample_every", "0"]
+LSUN_LMDB_FLAGS = [
+    "--dataset", "lsun", "--lsun_category", "bedroom_train", "--model", "mmd",
+    "--kernel", "rq", "--architecture", "dcgan", "--output_size", "64", "--batch_size", "64",
+    "--real_batch_size", "64", "--dof_dim", "16", "--dsteps", "5",
+    "--compute_dtype", "bfloat16"]
+RESNET64_FLAGS = [
+    "--model", "sn-smmd", "--kernel", "rq", "--architecture", "resnet",
+    "--output_size", "64", "--batch_size", "64", "--real_batch_size", "64", "--dof_dim", "16",
+    "--dsteps", "5", "--compute_dtype", "bfloat16", "--scaling_grad_estimator", "hutchinson",
+    "--steps_per_dispatch", "4"]
+LSUN_PACKED_FLAGS = ["--dataset", "lsun", "--lsun_category", "bedroom_train",
+                     "--data_placement", "device"] + RESNET64_FLAGS
+IMAGENET64_TFRECORD_FLAGS = ["--dataset", "imagenet64"] + RESNET64_FLAGS
+IMAGENET64_STEPS = 16
+
+
+def _fixtures(tree: str) -> list:
+    """The committed JPEG fixtures: (manifest entry, bytes)."""
+    root = os.path.join(tree, FIXTURE_DIR)
+    with open(os.path.join(root, "manifest.json")) as f:
+        entries = json.load(f)["files"]
+    out = []
+    for e in entries:
+        with open(os.path.join(root, e["name"]), "rb") as f:
+            out.append((e, f.read()))
+    return out
+
+
+def _sha256(arr) -> str:
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def check_decoder(tree: str, results: dict) -> list:
+    """(a) The native decoder built from the checkout; every fixture against
+    PIL's recorded hashes and the plain decoder; its crops at 160 and 64
+    against their recorded hashes and the plain resize; the refused layouts
+    raise in both decoders.  ms per image at 1 and 8 threads.  Returns the
+    fixtures."""
+    import concurrent.futures as cf
+    import numpy as np
+    from smmdax_torch.data import image, jpeg, native
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    fixtures = _fixtures(tree)
+    read = 0
+    for e, data in fixtures:
+        name = e["name"]
+        if "refuse" in e:
+            for decode in (native.decode_jpeg, jpeg.decode_jpeg):
+                try:
+                    decode(data)
+                except NotImplementedError:
+                    continue
+                fail(f"decoder: {name} decoded by {decode.__module__}, must be refused")
+            continue
+        got = native.decode_jpeg(data)
+        if _sha256(got) != e["rgb_sha256"]:
+            fail(f"decoder: {name} differs from PIL's bytes")
+        if not np.array_equal(jpeg.decode_jpeg(data), got):
+            fail(f"decoder: {name} differs from the plain decoder")
+        for size, crop, key in ((160, 160, "crop160_sha256"), (64, None, "crop64_sha256")):
+            cut = image.center_crop_resize(got, size, crop=crop)
+            if _sha256(cut) != e[key]:
+                fail(f"decoder: {name} center_crop_resize at {size} differs from PIL's")
+            h, w = got.shape[:2]
+            c = min(w, h) if crop is None else min(crop, w, h)
+            top, left = (h - c) // 2, (w - c) // 2
+            plain = image.resize_bilinear_pil_plain(got[top:top + c, left:left + c], (size, size))
+            if not np.array_equal(plain, cut):
+                fail(f"decoder: {name} resize at {size} differs from the plain resize")
+        read += 1
+    timings = {}
+
+    def native_resize(data, size, crop):
+        return image.center_crop_resize(native.decode_jpeg(data), size, crop=crop)
+
+    def numpy_resize(data, size, crop):
+        # the LSUN fixtures are square: the crop is the whole image
+        return image.resize_bilinear_pil_plain(native.decode_jpeg(data), (size, size))
+
+    # the LSUN unit of work twice, with the native resize and with its numpy
+    # version: whether the C++ passes earn their place on the training path
+    for label, prefix, size, crop, crop_resize in (
+            ("178x218 -> crop 160", "celeba_", 160, 160, native_resize),
+            ("256x256 -> 64", "lsun_", 64, None, native_resize),
+            ("256x256 -> 64, numpy resize", "lsun_", 64, None, numpy_resize)):
+        datas = [d for e, d in fixtures if e["name"].startswith(prefix)]
+        work = [datas[i % len(datas)] for i in range(DECODE_TIMING_IMAGES)]
+
+        def one(data, size=size, crop=crop, crop_resize=crop_resize):
+            return crop_resize(data, size, crop)
+
+        for _ in work[:8]:
+            one(_)
+        row = {}
+        # numpy's resize only where it would run, in the pool (1 thread of
+        # it takes seconds)
+        for threads in ((8,) if crop_resize is numpy_resize else (1, 8)):
+            t0 = time.perf_counter()
+            if threads == 1:
+                for data in work:
+                    one(data)
+            else:
+                with cf.ThreadPoolExecutor(threads) as pool:
+                    list(pool.map(one, work))
+            row[f"ms_per_image_{threads}_thread"] = 1e3 * (time.perf_counter() - t0) / len(work)
+        timings[label] = row
+    results["formats"]["decoder"] = dict(build_s=build_s, fixtures_read=read,
+                                         fixtures_refused=len(fixtures) - read, timings=timings)
+    log(f"decoder: built in {build_s:.1f} s; {read} fixtures equal PIL's hashes and the plain "
+        f"decoder, crops at 160 and 64 equal PIL's and the plain resize; "
+        f"{len(fixtures) - read} refused layouts raise")
+    for label, row in timings.items():
+        single, eight = row.get("ms_per_image_1_thread"), row["ms_per_image_8_thread"]
+        log(f"decoder: {label}: "
+            + (f"{single:.3f} ms per image on 1 thread, {eight:.3f} on 8" if single
+               else f"{eight:.3f} ms per image on 8 threads")
+            + f" ({DECODE_TIMING_IMAGES} images, decode and crop / resize)")
+    return fixtures
+
+
+def _pb(field: int, payload: bytes) -> bytes:
+    """One length-delimited protobuf field."""
+    def varint(v):
+        out = b""
+        while True:
+            out += bytes([(v & 0x7F) | (0x80 if v > 0x7F else 0)])
+            v >>= 7
+            if not v:
+                return out
+    return varint(field << 3 | 2) + varint(len(payload)) + payload
+
+
+def _tf_example(jpeg: bytes) -> bytes:
+    """A ``tf.train.Example`` with one ``image/encoded`` bytes feature."""
+    feature = _pb(1, _pb(1, jpeg))                      # Feature.bytes_list.value
+    entry = _pb(1, b"image/encoded") + _pb(2, feature)  # Features.feature map entry
+    return _pb(1, _pb(1, entry))                        # Example.features
+
+
+def make_format_assets(data_dir: str, fixtures: list) -> dict:
+    """(b) Training-size assets from the fixtures, written by this script
+    and the port's own writer: a CelebA-layout directory, an LSUN LMDB and
+    one TFRecord shard (framed here; CRCs left zero: neither reader checks
+    them)."""
+    import struct
+    from smmdax_torch.data.lmdb_store import write_lmdb
+    celeba = [d for e, d in fixtures if e["name"].startswith("celeba_")]
+    lsun = [d for e, d in fixtures if e["name"].startswith("lsun_")]
+    root = os.path.join(data_dir, "celeba")
+    os.makedirs(root)
+    for i in range(FORMAT_FILES):
+        with open(os.path.join(root, f"{i:06d}.jpg"), "wb") as f:
+            f.write(celeba[i % len(celeba)])
+    env = os.path.join(data_dir, "lsun", "bedroom_train_lmdb")
+    write_lmdb(env, ((f"{i:016x}".encode(), lsun[i % len(lsun)]) for i in range(FORMAT_FILES)))
+    shard = os.path.join(data_dir, "imagenet64", "train.tfrecord-00000-of-00001")
+    os.makedirs(os.path.dirname(shard))
+    with open(shard, "wb") as f:
+        for i in range(TFRECORD_RECORDS):
+            payload = _tf_example(lsun[i % len(lsun)])
+            f.write(struct.pack("<QI", len(payload), 0) + payload + struct.pack("<I", 0))
+    sizes = dict(celeba_mb=sum(os.path.getsize(os.path.join(root, n))
+                               for n in os.listdir(root)) / 2**20,
+                 lmdb_mb=os.path.getsize(os.path.join(env, "data.mdb")) / 2**20,
+                 tfrecord_mb=os.path.getsize(shard) / 2**20)
+    log(f"formats: {FORMAT_FILES} CelebA JPEGs ({sizes['celeba_mb']:.1f} MB), an LSUN LMDB of "
+        f"{FORMAT_FILES} records ({sizes['lmdb_mb']:.1f} MB), a TFRecord shard of "
+        f"{TFRECORD_RECORDS} ({sizes['tfrecord_mb']:.1f} MB)")
+    return sizes
+
+
+def _steady_rate(rows: list, after: int) -> float:
+    """All the images of the log windows that start at or after step
+    ``after`` over all their wall time.  Those windows run one number of
+    critic updates per macro-step, so a window's images are its macro-steps
+    times one constant, and its time those over its rate."""
+    prev, steps, secs = 0, 0, 0.0
+    for r in rows:
+        if "images_per_sec" not in r:
+            continue
+        span, rate, start = r["step"] - prev, r["images_per_sec"], prev
+        prev = r["step"]
+        if start < after:
+            continue
+        if not (math.isfinite(rate) and rate > 0):
+            fail(f"formats: log rows {rows}")
+        steps += span
+        secs += span / rate
+    if not steps:
+        fail(f"formats: no log window after step {after} in {rows}")
+    return steps / secs
+
+
+def _finite_rows(rows: list, what: str) -> None:
+    bad = [(r["step"], k) for r in rows for k, v in r.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"{what}: non-finite logged metrics {bad}")
+
+
+def run_celeba160(tmp: str, data_dir: str, fixtures: list, results: dict, tree: str) -> dict:
+    """(c) exp/celeba160_sn_smmd_resnet.sh at full width, host-fed from the
+    JPEG directory, 12 macro-steps with a checkpoint at 6; a run stopped at
+    6 and resumed in a fresh process equals it bit for bit.  Returns the
+    kernels' launches in the straight run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from smmdax_torch import checkpoint
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.cuda import mmd_kernel as mk
+    from smmdax_torch.data.pipeline import CelebASource
+    from smmdax_torch.trainer import Trainer
+
+    def cfg_for(run: str, steps: int):
+        return config_from_args(CELEBA160_TRAIN_FLAGS + CELEBA160_CUT_FLAGS + _dirs(tmp, run)
+                                + ["--data_dir", data_dir, "--max_iteration", str(steps)])
+
+    with deterministic_torch():
+        cfg_a = cfg_for("celebaA", CELEBA160_STEPS)
+        trainer = Trainer(cfg_a, device="cuda")
+        src = trainer.source
+        if not isinstance(src, CelebASource) or len(src.files) != FORMAT_FILES:
+            fail(f"celeba160: the trainer's source is {type(src).__name__}")
+        # what the trainer is fed is PIL's bytes: the crops of step 0's
+        # first draws against their fixtures' recorded hashes
+        want = [e["crop160_sha256"] for e, _ in fixtures if e["name"].startswith("celeba_")]
+        drawn = np.random.default_rng((cfg_a.random_seed, 0)).integers(0, FORMAT_FILES, 8)
+        for j in drawn:
+            if _sha256(src.decode_u8(int(j))) != want[int(j) % len(want)]:
+                fail(f"celeba160: file {j} decodes to other bytes than PIL's")
+        counters = mk.kernel_launch_counters()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        state_a = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in counters}
+        rows = _log_rows(trainer)
+        cfg_b = cfg_for("celebaB", CELEBA160_STEPS // 2)
+        Trainer(cfg_b, device="cuda").train()
+    missing = [k for k in ("pair_sum", "pair_sum_grad_a") if launches[k] == 0]
+    if missing:
+        fail(f"celeba160: the run did not launch {missing} ({launches})")
+    _finite_rows(rows, "celeba160")
+    out = os.path.join(tmp, "celeba_resumed.pt")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_resume_worker, args=(tree, dataclasses.asdict(
+            cfg_b.replace(max_iteration=CELEBA160_STEPS)), "cuda", out))
+    proc.start()
+    proc.join(600)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    if proc.exitcode != 0 or not os.path.exists(out):
+        fail(f"celeba160: the resuming process exited with {proc.exitcode}")
+    resumed = torch.load(out, weights_only=True)
+    if resumed["resumed_at"] != CELEBA160_STEPS // 2:
+        fail(f"celeba160: resumed at step {resumed['resumed_at']}")
+    diffs = _state_diffs(checkpoint.state_dict(state_a), resumed["state"])
+    if diffs:
+        fail(f"celeba160: the resumed run differs from the straight one at {diffs[:20]}")
+    # host time to build one macro-batch (the prefetch thread's work per
+    # macro-step) against the trainer's ms per macro-step after warm-up
+    ips = _steady_rate(rows, cfg_a.warmup_iterations)
+    images = _images_per_macro_step(trainer, CELEBA160_STEPS)
+    step_ms = 1e3 * images / ips
+    res = dict(wall_s=wall, launches=launches, images_per_s=ips, ms_per_macro_step=step_ms,
+               host_ms_per_macro_batch=_host_batch_ms(trainer, CELEBA160_STEPS),
+               images_per_macro_batch=images, resumed_identical=True,
+               windows=[r["images_per_sec"] for r in rows if "images_per_sec" in r])
+    results["formats"]["celeba160"] = res
+    log(f"celeba160: {CELEBA160_STEPS} macro-steps host-fed from {FORMAT_FILES} JPEGs in "
+        f"{wall:.2f} s; trainer {ips:.1f} images/s over the windows after warm-up "
+        f"({step_ms:.1f} ms per macro-step); one macro-batch of {images} decodes and crops "
+        f"{res['host_ms_per_macro_batch']:.1f} ms on the host; launches {launches}; windows "
+        + ", ".join(f"{v:.1f}" for v in res["windows"]))
+    log("celeba160: stopped at 6 and resumed in a fresh process, equal to the straight run "
+        "bit for bit (deterministic algorithms on)")
+    return launches
+
+
+def _train_arm(tmp: str, data_dir: str, run: str, flags: list, steps: int) -> dict:
+    import torch
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.cuda import mmd_kernel as mk
+    from smmdax_torch.trainer import Trainer
+    cfg = config_from_args(REHEARSAL_FLAGS + flags + _dirs(tmp, run)
+                           + ["--data_dir", data_dir, "--max_iteration", str(steps)])
+    trainer = Trainer(cfg, device="cuda")
+    counters = mk.kernel_launch_counters()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    rows = _log_rows(trainer)
+    _finite_rows(rows, run)
+    if launches["pair_sum"] == 0:
+        fail(f"{run}: no fused MMD launch ({launches})")
+    # the first window holds the step's compile
+    ips = _steady_rate(rows, cfg.log_every)
+    images = _images_per_macro_step(trainer, steps)
+    return dict(source=type(trainer.source).__name__, wall_s=wall, launches=launches,
+                images_per_s=ips, images_per_macro_step=images,
+                ms_per_macro_step=1e3 * images / ips,
+                host_ms_per_macro_batch=_host_batch_ms(trainer, steps),
+                windows=[r["images_per_sec"] for r in rows if "images_per_sec" in r])
+
+
+def _images_per_macro_step(trainer, steps: int) -> int:
+    """Real images of one of the run's last macro-steps (critic updates at
+    that step, warm-up or not, plus the generator's, times the batch)."""
+    cfg = trainer.cfg
+    return (trainer._dsteps_at(steps - 1) + cfg.gsteps) * cfg.real_batch_size
+
+
+def _host_batch_ms(trainer, steps: int) -> float:
+    """Median of 3 host builds of the run's last macro-batches, as the
+    trainer's producer thread builds them."""
+    times = []
+    for s in range(steps - 3, steps):
+        t0 = time.perf_counter()
+        trainer._make_batch(s)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[1]
+
+
+def run_lsun_arms(tmp: str, data_dir: str, results: dict, tree: str) -> None:
+    """(d) The rehearsal's lsun_lmdb_host arm from the LMDB; packing with
+    ``python -m smmdax_torch.data.convert lsun`` (images/s, the cache held
+    to the reader's decodes); then its lsun_packed_device arm."""
+    import numpy as np
+    from smmdax_torch.data.pipeline import LSUNSource
+    lmdb = _train_arm(tmp, data_dir, "lsun_lmdb", LSUN_LMDB_FLAGS, LSUN_LMDB_STEPS)
+    if lmdb["source"] != "LSUNSource":
+        fail(f"lsun_lmdb_host: trained from {lmdb['source']}")
+    env = os.path.join(data_dir, "lsun", "bedroom_train_lmdb")
+    out = os.path.join(data_dir, "lsun", "packed_bedroom_train_64.npy")
+    cmd = [sys.executable, "-m", "smmdax_torch.data.convert", "lsun", env, out,
+           "--size", "64", "--threads", "8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=tree))
+    pack_s = time.perf_counter() - t0
+    if proc.returncode != 0 or not proc.stdout.strip().endswith(f"wrote {out}"):
+        fail(f"pack: exited {proc.returncode}: {proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    packed = np.load(out, mmap_mode="r")
+    reader = LSUNSource(env, output_size=64, decode_threads=1)
+    if packed.shape != (FORMAT_FILES, 64, 64, 3) or not all(
+            np.array_equal(packed[i], reader.decode_u8(i))
+            for i in (0, 1, FORMAT_FILES // 2, FORMAT_FILES - 1)):
+        fail(f"pack: {packed.shape} cache differs from the reader's decodes")
+    dev = _train_arm(tmp, data_dir, "lsun_packed", LSUN_PACKED_FLAGS, FORMAT_ARM_STEPS)
+    if dev["source"] != "ArraySource":
+        fail(f"lsun_packed_device: trained from {dev['source']}")
+    results["formats"]["lsun"] = dict(lmdb_host=lmdb, packed_device=dev, pack_wall_s=pack_s,
+                                      pack_images_per_s=FORMAT_FILES / pack_s)
+    log(f"lsun_lmdb_host (mmd, DCGAN, 64 px, LMDB decoded per batch, {LSUN_LMDB_STEPS} "
+        f"macro-steps): {lmdb['images_per_s']:.1f} images/s over the windows after the first "
+        f"({lmdb['ms_per_macro_step']:.1f} ms per macro-step of {lmdb['images_per_macro_step']} "
+        f"images; one macro-batch {lmdb['host_ms_per_macro_batch']:.1f} ms on the host); "
+        "windows " + ", ".join(f"{v:.1f}" for v in lmdb["windows"]))
+    log(f"pack: {FORMAT_FILES} records in {pack_s:.2f} s of a fresh process "
+        f"({FORMAT_FILES / pack_s:.1f} images/s with the start); the cache equals the "
+        "reader's decodes")
+    log(f"lsun_packed_device (sn-smmd, ResNet, 64 px, K 4, device-resident, "
+        f"{FORMAT_ARM_STEPS} macro-steps): {dev['images_per_s']:.1f} images/s over the windows "
+        f"after the first ({dev['ms_per_macro_step']:.1f} ms per macro-step of "
+        f"{dev['images_per_macro_step']} images); windows "
+        + ", ".join(f"{v:.1f}" for v in dev["windows"]))
+
+
+def run_imagenet64_tfrecord(tmp: str, data_dir: str, results: dict) -> None:
+    """(e) A few macro-steps of the ResNet at 64 px from the TFRecord shard;
+    the source's decode pool timed against one thread."""
+    import numpy as np
+    arm = _train_arm(tmp, data_dir, "imagenet64_tfrecord", IMAGENET64_TFRECORD_FLAGS,
+                     IMAGENET64_STEPS)
+    if arm["source"] != "TFRecordSource":
+        fail(f"imagenet64: trained from {arm['source']}")
+    # the source's decode pool against one thread, on one macro-batch's
+    # draws, batches equal
+    from smmdax_torch.data.tfrecord import TFRecordSource
+    root = os.path.join(data_dir, "imagenet64")
+    n = arm["images_per_macro_step"]
+    pool_ms, batches = {}, []
+    for threads in (1, 8):
+        src = TFRecordSource(root, 64, decode_threads=threads)
+        t0 = time.perf_counter()
+        batches.append(src.batch(n, key=0))
+        pool_ms[threads] = 1e3 * (time.perf_counter() - t0)
+    if not np.array_equal(*batches):
+        fail("imagenet64: a batch of 8 decode threads differs from 1 thread's")
+    arm["batch_ms_by_decode_threads"] = pool_ms
+    results["formats"]["imagenet64_tfrecord"] = arm
+    log(f"imagenet64 from a TFRecord shard ({TFRECORD_RECORDS} encoded records): "
+        f"{IMAGENET64_STEPS} macro-steps, {arm['images_per_s']:.1f} images/s over the windows "
+        f"after the first ({arm['ms_per_macro_step']:.1f} ms per macro-step of {n} images; one "
+        f"macro-batch {arm['host_ms_per_macro_batch']:.1f} ms on the host); launches "
+        f"{arm['launches']}; one macro-batch of {n} records {pool_ms[1]:.1f} ms on 1 decode "
+        f"thread, {pool_ms[8]:.1f} ms on 8")
+
+
+def run_formats(tmp: str, results: dict, tree: str) -> dict:
+    """Phase 11 (see the module docstring).  Returns the kernels' launches
+    in the celeba160 run."""
+    t_phase = time.perf_counter()
+    results["formats"] = {}
+    fixtures = check_decoder(tree, results)
+    data_dir = os.path.join(tmp, "formats_data")
+    results["formats"]["assets"] = make_format_assets(data_dir, fixtures)
+    launches = run_celeba160(tmp, data_dir, fixtures, results, tree)
+    run_lsun_arms(tmp, data_dir, results, tree)
+    run_imagenet64_tfrecord(tmp, data_dir, results)
+    results["formats"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"formats phase: {results['formats']['phase_s']:.1f} s")
+    return launches
+
+
 def profile_only(results: dict) -> int:
     """The timed and profiled bf16 macro-steps of phases 3 and 4 alone."""
     import torch
@@ -2546,12 +3034,14 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", default=HERE,
                         help="import smmdax_torch from this checkout (default: beside "
                              "this script), e.g. an earlier commit unpacked by git archive")
-    parser.add_argument("--only", choices=("profile", "ranks", "inception"), default=None,
+    parser.add_argument("--only", choices=("profile", "ranks", "inception", "formats"),
+                        default=None,
                         help="profile: build, then only the timed and profiled bf16 "
                              "steps of phases 3 and 4; prints the launches and device "
                              "us per launch of each csrc kernel, and no ok line; "
                              "ranks: build, then phase 9 alone, and no ok line; "
-                             "inception: build, then phase 10 alone, and no ok line")
+                             "inception: build, then phase 10 alone, and no ok line; "
+                             "formats: build, then phase 11 alone, and no ok line")
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
     # cuBLAS reads it when CUDA starts: phase 5 runs deterministic
@@ -2586,9 +3076,10 @@ def main(argv=None) -> int:
     results["build_s"] = secs
     if args.only == "profile":
         return profile_only(results)
-    if args.only in ("ranks", "inception"):
+    if args.only in ("ranks", "inception", "formats"):
+        phase = {"ranks": run_ranks, "inception": run_inception, "formats": run_formats}
         with tempfile.TemporaryDirectory() as tmp:
-            (run_ranks if args.only == "ranks" else run_inception)(tmp, results, tree)
+            phase[args.only](tmp, results, tree)
         write_results(args.out, results)
         print(card_line(), flush=True)
         return 0
@@ -2673,6 +3164,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         inception = run_inception(tmp, results, tree)
 
+    # phase 11
+    with tempfile.TemporaryDirectory() as tmp:
+        formats = run_formats(tmp, results, tree)
+
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
 
@@ -2726,6 +3221,8 @@ def main(argv=None) -> int:
             for label, t in ranks.items()}
         # phase 10: the flagship run with one 25,000-sample Inception event
         kern["inception_trainer_launches"] = inception[counter]
+        # phase 11: the celeba160 run host-fed from the JPEG directory
+        kern["celeba160_launches"] = formats[counter]
     card = card_line()
     results.update(kernels=kernels, card=card)
     write_results(args.out, results)

@@ -4,9 +4,11 @@
   python -m smmdax_torch.compute_scores REAL FAKE --compare OTHER_FAKE
 
 REAL/FAKE are .npy/.npz files of images (N,H,W,C in [-1,1] or uint8) or
-of precomputed features (N,d, ndim==2), or directories of PNG images
-(8-bit grey, RGB or RGBA, all of one size).  Prints FID, KID (mean +-
-std) and, when class probabilities are available, IS.
+of precomputed features (N,d, ndim==2), or directories of PNG/JPEG images
+(decoded without PIL, to PIL's bytes; mixed sizes are resized to the
+modal size with PIL's bilinear filter, as ``compute_scores.py`` does).
+Prints FID, KID (mean +- std) and, when class probabilities are
+available, IS.
 
 ``--compare OTHER_FAKE`` also runs the Bounliphone et al. relative-MMD
 three-sample test (the scheduler's decision rule) between the two
@@ -24,6 +26,7 @@ from __future__ import annotations
 import argparse
 import functools
 import os
+from collections import Counter
 
 import numpy as np
 import torch
@@ -31,22 +34,26 @@ import torch
 
 def _load(path: str) -> np.ndarray:
     if os.path.isdir(path):
-        from smmdax_torch.utils import read_png
-        names = sorted(os.listdir(path))
-        if any(f.lower().endswith((".jpg", ".jpeg")) for f in names):
-            raise NotImplementedError(
-                f"{path}: JPEG files need an image decoder the port does not have "
-                "(ROADMAP: image readers); convert them to PNG or to a uint8 .npy")
-        files = [os.path.join(path, f) for f in names if f.lower().endswith(".png")]
+        from smmdax_torch.data.image import decode_image, resize_bilinear_pil
+        files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                       if f.lower().endswith((".png", ".jpg", ".jpeg")))
         if not files:
             raise FileNotFoundError(f"no images in {path}")
-        imgs = [read_png(f) for f in files]
-        sizes = {im.shape[:2] for im in imgs}
+        imgs = []
+        for f in files:
+            with open(f, "rb") as fh:
+                imgs.append(decode_image(fh.read()))
+        sizes = {(im.shape[1], im.shape[0]) for im in imgs}     # PIL's (w, h)
         if len(sizes) > 1:
-            raise NotImplementedError(
-                f"{path}: {len(sizes)} distinct image sizes; the port does not resize "
-                "sets of mixed sizes (ROADMAP: image readers)")
-        return np.stack([im.astype(np.float32) / 127.5 - 1.0 for im in imgs])
+            # mixed resolutions: bilinear-resize everything to the modal
+            # size (the extractor resizes to its own input size anyway;
+            # this just makes the batch stackable)
+            target = Counter((im.shape[1], im.shape[0]) for im in imgs).most_common(1)[0][0]
+            print(f"[compute_scores] {path}: {len(sizes)} distinct "
+                  f"image sizes; resizing all to {target[0]}x{target[1]}")
+            imgs = [im if (im.shape[1], im.shape[0]) == target
+                    else resize_bilinear_pil(im, target) for im in imgs]
+        return np.stack([np.asarray(im, np.float32) / 127.5 - 1.0 for im in imgs])
     if path.endswith(".npz"):
         with np.load(path) as z:
             arr = z[list(z.keys())[0]]

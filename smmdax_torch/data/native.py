@@ -1,0 +1,129 @@
+"""Build and load the native JPEG decoder and resize (``data/_native/jpeg.cpp``).
+
+The source is compiled with ``g++ -O3 -shared -fPIC`` at first use into
+``smmdax_torch/_build/`` (listed in ``.gitignore``), under a name hashed
+from the source, the flags and the machine, and bound with ``ctypes``
+(plain C interface).  The compiler writes to a temporary name that
+``os.replace`` then moves into place, so processes building at once never
+load half a file.  A ``ctypes`` call releases the GIL: a pool of threads
+decodes side by side.
+
+There is no fallback: if the library cannot be built or loaded, decoding
+raises.  The plain decoder (``data/jpeg.py``) is the reference the tests
+hold this one to, never a substitute for it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import threading
+
+import numpy as np
+
+from smmdax_torch.data.jpeg import unsupported
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(PACKAGE_DIR, "data", "_native", "jpeg.cpp")
+BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+_LOCK = threading.Lock()
+_LIB = None
+_ERRLEN = 512
+
+
+def library_path() -> str:
+    with open(SOURCE, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update(" ".join(FLAGS).encode() + platform.machine().encode())
+    return os.path.join(BUILD_DIR, f"libjpeg_decode_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the decoder if its library is not current; its path.  Every
+    failure raises ``RuntimeError``: a missing source or compiler is not
+    the missing dataset that a ``FileNotFoundError`` would announce."""
+    try:
+        out = library_path()
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+            proc = subprocess.run(["g++", *FLAGS, SOURCE, "-o", tmp],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed to build the JPEG decoder:\n{proc.stderr}")
+            os.replace(tmp, out)
+    except OSError as e:
+        raise RuntimeError(f"cannot build the JPEG decoder from {SOURCE}: {e}") from e
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded decoder, built first if needed."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            path = build()
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise RuntimeError(f"cannot load the JPEG decoder {path}: {e}") from e
+            for name in ("smm_jpeg_size", "smm_jpeg_decode", "smm_resize_pil"):
+                getattr(lib, name).restype = ctypes.c_int
+            lib.smm_jpeg_size.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                          ctypes.c_char_p, ctypes.c_int]
+            lib.smm_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+            i32, ptr = ctypes.c_int, ctypes.c_void_p
+            lib.smm_resize_pil.argtypes = [ptr, i32, i32, i32, ctypes.c_int64, ptr, i32, i32,
+                                           ptr, ptr, i32, ptr, ptr, i32]
+            _LIB = lib
+        return _LIB
+
+
+def _raise(code: int, err) -> None:
+    msg = err.value.decode(errors="replace")
+    if code == 1:
+        raise unsupported(msg)
+    raise ValueError(f"corrupt JPEG: {msg}")
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 RGB, equal to PIL's
+    ``Image.open(...).convert("RGB")``.  Layouts the decoder does not read
+    raise ``NotImplementedError``; corrupt data ``ValueError``."""
+    lib = library()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    wh = np.zeros(2, np.int32)
+    code = lib.smm_jpeg_size(data, len(data), wh.ctypes.data, err, _ERRLEN)
+    if code:
+        _raise(code, err)
+    out = np.empty((int(wh[1]), int(wh[0]), 3), np.uint8)
+    code = lib.smm_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, err, _ERRLEN)
+    if code:
+        _raise(code, err)
+    return out
+
+
+def resize_pil(u8: np.ndarray, size, xcoeffs, ycoeffs) -> np.ndarray:
+    """The integer passes of PIL's bilinear resample of (H, W[, C]) uint8
+    (rows may be strided) to ``size = (w, h)``, on (tap index, fixed-point
+    weight) tables of each axis that the caller computes as Pillow does."""
+    w, h = size
+    u8 = np.asarray(u8)
+    c = u8.shape[2] if u8.ndim == 3 else 1
+    if u8.dtype != np.uint8 or u8.strides[0] <= 0 or u8.strides[1] != c or (
+            u8.ndim == 3 and u8.strides[2] != 1):
+        u8 = np.ascontiguousarray(u8, np.uint8)
+    ih, iw = u8.shape[:2]
+    out = np.empty((h, w) + u8.shape[2:], np.uint8)
+    (xi, xk), (yi, yk) = xcoeffs, ycoeffs
+    library().smm_resize_pil(u8.ctypes.data, ih, iw, c, u8.strides[0], out.ctypes.data, h, w,
+                             xi.ctypes.data, xk.ctypes.data, xi.shape[1],
+                             yi.ctypes.data, yk.ctypes.data, yi.shape[1])
+    return out

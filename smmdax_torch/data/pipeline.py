@@ -3,14 +3,15 @@
 
 Batches are numpy, keyed by (seed, step), drawn exactly as the JAX
 package draws them, so both packages train on byte-identical batches.
-The loaders read CIFAR-10 pickles, ImageNet-64 npz shards and MNIST idx
-files; without an asset the procedural ``SyntheticImages`` source with
-the same shapes stands in, with a printed note, as in the JAX package.
-``gaussian_mix`` is the 1-D toy (float32 samples, ``toy_dim`` ignored as
-in the JAX package).  The decoders of CelebA / LSUN images, LMDB
-environments, TFRecord shards and packed caches are not ported (ROADMAP:
-image readers): when such an asset is present, ``make_dataset`` raises
-rather than train on synthetic data.
+The loaders read CIFAR-10 pickles, ImageNet-64 npz shards and TFRecord
+shards, MNIST idx files, decode-once packed uint8 caches, LSUN LMDB
+environments and CelebA-layout JPEG/PNG directories, in the JAX package's
+order.  Images are decoded without PIL (``data/image.py``: the native JPEG
+decoder and PIL's bilinear resize, both byte-identical to PIL's).  Without
+an asset the procedural ``SyntheticImages`` source with the same shapes
+stands in, with a printed note, as in the JAX package; an asset that is
+present but cannot be read raises.  ``gaussian_mix`` is the 1-D toy
+(float32 samples, ``toy_dim`` ignored as in the JAX package).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Iterator, Optional, Protocol, Tuple
 import numpy as np
 
 from smmdax_torch.configs import Config
+from smmdax_torch.data.image import (DECODE_THREADS, DecodePool, center_crop_resize,
+                                     decode_image)
 from smmdax_torch.data.synthetic import GaussianMix, SyntheticImages
 
 Array = np.ndarray
@@ -126,11 +129,155 @@ def _load_npz_images(data_dir: str, subdir: str, size: int) -> Optional[Array]:
     return np.concatenate(arrs)
 
 
-def _no_reader(cfg: Config, what: str):
-    raise NotImplementedError(
-        f"dataset {cfg.dataset!r}: {what} found under {cfg.data_dir}, but the "
-        "port has no reader for it yet (ROADMAP: image readers); convert it to npz "
-        "shards or train with the JAX package")
+def _decoder_pool(threads: int) -> DecodePool:
+    """A decode pool, with the native decoder built (or raising) first:
+    before any batch, a source that decodes has no other decoder to fall
+    back to."""
+    from smmdax_torch.data.native import library
+    library()
+    return DecodePool(threads)
+
+
+def image_files(root: str) -> list:
+    """The JPEG and PNG files of a directory, sorted."""
+    return sorted(os.path.join(root, f) for f in os.listdir(root)
+                  if f.lower().endswith((".jpg", ".jpeg", ".png")))
+
+
+class CelebASource:
+    """JPEG/PNG directory -> center-crop -> resize to output_size, in
+    [-1, 1] (``x / 127.5 - 1.0``, as the JAX package).  The drawn images
+    are decoded per batch, in a pool of ``DECODE_THREADS``; the crop and
+    resize match the reference's 160x160 CelebA pipeline (center-crop 160
+    from the 178x218 aligned images).  Like the JAX package's, it has no
+    ``batch_u8``."""
+
+    def __init__(self, root: str, output_size: int = 160, crop: int = 160,
+                 seed: int = 0):
+        self.seed = seed
+        self.root = root
+        self.files = image_files(root)
+        if not self.files:
+            raise FileNotFoundError(f"no images under {root}")
+        self.pool = _decoder_pool(DECODE_THREADS)
+        self.output_size = output_size
+        self.crop = crop
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def sample_shape(self) -> Tuple[int, ...]:
+        return (self.output_size, self.output_size, 3)
+
+    def decode_u8(self, i: int) -> Array:
+        """File ``i`` -> (size, size, 3) uint8."""
+        with open(self.files[i], "rb") as f:
+            return center_crop_resize(decode_image(f.read()), self.output_size,
+                                      crop=self.crop)
+
+    def batch(self, n: int, key: Optional[int] = None,
+              rows: Optional[Array] = None) -> Array:
+        """n samples, or the ``rows`` of them (every draw is made, only
+        those images are decoded)."""
+        rng = self._rng if key is None else np.random.default_rng(
+            (self.seed, key))
+        idx = _rows(rng.integers(0, len(self.files), size=n), rows)
+        u8 = self.pool.decode_into(self.decode_u8, idx.tolist(), np.empty(
+            (len(idx), self.output_size, self.output_size, 3), np.uint8))
+        return u8.astype(np.float32) / 127.5 - 1.0
+
+
+class LSUNSource:
+    """LSUN LMDB environment -> decode -> center-crop the shortest side ->
+    resize to output_size, in [-1, 1].
+
+    Reads the LMDB B+tree directly (``data/lmdb_store.py``); random access
+    over the key index keeps batches a pure function of (seed, step).  The
+    drawn records are decoded in a pool of ``decode_threads``.  JPEG and
+    PNG values are read; the official LSUN LMDBs hold webp values, which
+    raise (ROADMAP: a webp decoder): pack those once with the JAX
+    package's converter on a host with PIL and train from the cache.
+    """
+
+    def __init__(self, lmdb_path: str, output_size: int = 64, seed: int = 0,
+                 decode_threads: int = DECODE_THREADS):
+        from smmdax_torch.data.lmdb_store import LMDBReader
+        self.reader = LMDBReader(lmdb_path)
+        if len(self.reader) == 0:
+            raise FileNotFoundError(f"empty LMDB at {lmdb_path}")
+        self.pool = _decoder_pool(decode_threads)
+        self.output_size = output_size
+        self.seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def sample_shape(self) -> Tuple[int, ...]:
+        return (self.output_size, self.output_size, 3)
+
+    def decode_u8(self, i: int) -> Array:
+        """One record -> (size, size, 3) uint8 (crop shortest side,
+        bilinear resize), also the conversion tool's unit of work."""
+        return center_crop_resize(decode_image(self.reader.value(i)), self.output_size)
+
+    def _indices(self, n: int, key: Optional[int]) -> Array:
+        rng = self._rng if key is None else np.random.default_rng(
+            (self.seed, key))
+        return rng.integers(0, len(self.reader), size=n)
+
+    def batch_u8(self, n: int, key: Optional[int] = None,
+                 rows: Optional[Array] = None) -> Array:
+        idx = _rows(self._indices(n, key), rows)
+        return self.pool.decode_into(self.decode_u8, idx.tolist(), np.empty(
+            (len(idx), self.output_size, self.output_size, 3), np.uint8))
+
+    def batch(self, n: int, key: Optional[int] = None,
+              rows: Optional[Array] = None) -> Array:
+        return self.batch_u8(n, key, rows).astype(np.float32) / 127.5 - 1.0
+
+
+def _find_lsun_lmdb(root: str, category: str = "") -> Optional[str]:
+    """data_dir/lsun may BE an environment, or contain one or more
+    ``*_lmdb`` environment directories (the official LSUN layout).
+
+    ``category`` selects the scene ("bedroom_train" matches
+    ``bedroom_train_lmdb`` or an exact directory name).  With several
+    environments present and no category this raises instead of
+    silently training on an arbitrary scene."""
+    if not os.path.isdir(root):
+        return None
+    if os.path.exists(os.path.join(root, "data.mdb")):
+        return root
+    envs = sorted(d for d in os.listdir(root)
+                  if os.path.exists(os.path.join(root, d, "data.mdb")))
+    if category:
+        matches = [d for d in envs if d in (category, category + "_lmdb")]
+        if not matches:
+            raise FileNotFoundError(
+                f"lsun_category={category!r} not found under {root}; "
+                f"available environments: {envs}")
+        chosen = matches[0]
+    elif len(envs) > 1:
+        raise ValueError(
+            f"multiple LSUN environments under {root}: {envs}; select one "
+            "with --lsun_category")
+    elif envs:
+        chosen = envs[0]
+    else:
+        return None
+    print(f"[smmdax_torch.data] LSUN environment: {chosen}")
+    return os.path.join(root, chosen)
+
+
+def _try_tfrecords(cfg: Config, subdir: str):
+    """TFRecord shards under data_dir/<subdir>."""
+    root = os.path.join(cfg.data_dir, subdir)
+    if not os.path.isdir(root):
+        return None
+    if not any(".tfrecord" in f for f in os.listdir(root)):
+        return None
+    from smmdax_torch.data.tfrecord import TFRecordSource
+    crop = 160 if subdir == "celeba" else None
+    return TFRecordSource(root, cfg.output_size, crop=crop,
+                          seed=cfg.random_seed)
 
 
 def make_dataset(cfg: Config) -> DataSource:
@@ -147,9 +294,9 @@ def make_dataset(cfg: Config) -> DataSource:
         data = _load_npz_images(cfg.data_dir, "imagenet64", 64)
         if data is not None:
             return ArraySource(data, seed=cfg.random_seed)
-        root = os.path.join(cfg.data_dir, "imagenet64")
-        if os.path.isdir(root) and any(".tfrecord" in f for f in os.listdir(root)):
-            _no_reader(cfg, "TFRecord shards")
+        src = _try_tfrecords(cfg, "imagenet64")
+        if src is not None:
+            return src
     elif ds == "mnist":
         path = os.path.join(cfg.data_dir, "mnist", "train-images-idx3-ubyte")
         if os.path.exists(path):
@@ -158,9 +305,41 @@ def make_dataset(cfg: Config) -> DataSource:
                 x = np.frombuffer(f.read(), np.uint8).reshape(-1, 28, 28, 1)
             return ArraySource(x.copy(), seed=cfg.random_seed)
     elif ds in ("lsun", "celeba"):
+        # fastest first: a decode-once packed uint8 cache (memmapped; built
+        # by ``python -m smmdax_torch.data.convert``).  With --lsun_category
+        # set, ONLY the per-scene cache is accepted: the generic packed file
+        # records no provenance and could have been built from another scene
+        from smmdax_torch.data.convert import load_packed, packed_path
+        category = cfg.lsun_category if ds == "lsun" else ""
+        packed = load_packed(packed_path(cfg.data_dir, ds, cfg.output_size,
+                                         category=category))
+        if packed is not None:
+            return ArraySource(packed, seed=cfg.random_seed)
+        if category:
+            generic = load_packed(
+                packed_path(cfg.data_dir, ds, cfg.output_size))
+            if generic is not None:
+                print(f"[smmdax_torch.data] ignoring category-less packed cache "
+                      f"(lsun_category={category!r} requested; repack with "
+                      f"out={packed_path(cfg.data_dir, ds, cfg.output_size, category=category)!r})")
+        if ds == "lsun":
+            lmdb_env = _find_lsun_lmdb(os.path.join(cfg.data_dir, "lsun"),
+                                       category=cfg.lsun_category)
+            if lmdb_env is not None:
+                return LSUNSource(lmdb_env, cfg.output_size,
+                                  seed=cfg.random_seed)
+        src = _try_tfrecords(cfg, ds)
+        if src is not None:
+            return src
         root = os.path.join(cfg.data_dir, ds)
-        if os.path.isdir(root) and os.listdir(root):
-            _no_reader(cfg, f"{root} (images, an LMDB, TFRecords or a packed cache)")
+        # a directory without images is no asset; one with images is read,
+        # or raises (the decoder not built, a file not readable)
+        if os.path.isdir(root) and image_files(root):
+            # shortest-side crop (crop=None) for LSUN loose JPEGs, as the
+            # LMDB / TFRecord / packed paths crop; CelebA's default is 160
+            crop = None if ds == "lsun" else 160
+            return CelebASource(root, cfg.output_size,
+                                seed=cfg.random_seed, crop=crop)
     print(f"[smmdax_torch.data] assets for {ds!r} not found under {cfg.data_dir}; "
           "substituting the procedural synthetic source with matching shapes")
     return SyntheticImages(cfg.output_size, cfg.c_dim, seed=cfg.random_seed)

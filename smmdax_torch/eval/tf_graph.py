@@ -5,9 +5,9 @@ The scoring asset of the reference lineage is a frozen TF Inception graph
 (the 2015 ``classify_image_graph_def.pb`` every published FID/KID number
 was computed with).  This module reads it with NO TensorFlow dependency:
 
-* a minimal protobuf **wire-format reader** for the GraphDef subset a
-  frozen inference graph uses (NodeDef, AttrValue, TensorProto), written
-  from the public protobuf encoding spec;
+* a reader of the GraphDef subset a frozen inference graph uses (NodeDef,
+  AttrValue, TensorProto) on the port's protobuf wire-format reader
+  (``smmdax_torch/protowire.py``, from the public protobuf encoding spec);
 * a **structural matcher** that identifies the Inception-v3 architecture
   by graph topology and tensor shapes, never by node names, and emits
   the folded-BN torchvision-schema params that
@@ -28,72 +28,20 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from smmdax_torch.protowire import fields as _fields
+from smmdax_torch.protowire import packed_varints as _packed_varints
+from smmdax_torch.protowire import signed as _signed
+
 __all__ = ["parse_graph_def", "convert_frozen_graph", "GraphDefNode"]
 
 
 # --------------------------------------------------------------------------
-# Protobuf wire-format reader (the GraphDef subset frozen graphs use).
+# The GraphDef subset frozen graphs use, read with ``smmdax_torch.protowire``.
 #
-# Wire types: 0 varint, 1 fixed64, 2 length-delimited, 5 fixed32.
 # Field numbers are from the public tensorflow .proto definitions
 # (graph.proto / node_def.proto / attr_value.proto / tensor.proto /
 # tensor_shape.proto), which are stable public API.
 # --------------------------------------------------------------------------
-
-
-def _varint(buf: bytes, i: int) -> Tuple[int, int]:
-    val, shift = 0, 0
-    while True:
-        b = buf[i]
-        i += 1
-        val |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return val, i
-        shift += 7
-        if shift > 70:
-            raise ValueError("malformed varint")
-
-
-def _fields(buf: bytes):
-    """Yield (field_number, wire_type, value) over a message's bytes.
-
-    value is an int for varint fields, bytes for length-delimited,
-    and raw little-endian bytes for fixed32/fixed64.
-    """
-    i, n = 0, len(buf)
-    while i < n:
-        key, i = _varint(buf, i)
-        field, wt = key >> 3, key & 7
-        if wt == 0:
-            val, i = _varint(buf, i)
-        elif wt == 1:
-            val = buf[i:i + 8]
-            i += 8
-        elif wt == 2:
-            ln, i = _varint(buf, i)
-            val = buf[i:i + ln]
-            i += ln
-        elif wt == 5:
-            val = buf[i:i + 4]
-            i += 4
-        else:
-            raise ValueError(f"unsupported wire type {wt}")
-        yield field, wt, val
-
-
-def _packed_varints(val, wt) -> List[int]:
-    if wt == 0:
-        return [val]
-    out, i = [], 0
-    while i < len(val):
-        v, i = _varint(val, i)
-        out.append(v)
-    return out
-
-
-def _signed(v: int) -> int:
-    """Plain (non-zigzag) int64 varints store negatives as 2^64 - |x|."""
-    return v - (1 << 64) if v >= (1 << 63) else v
 
 
 # tensorflow DataType enum values we understand.

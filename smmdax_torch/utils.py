@@ -4,8 +4,8 @@
 The machine with the card has neither PIL nor TensorFlow, so PNGs are
 written with the standard library (``zlib`` + ``struct``: 8-bit grey or
 RGB, no interlace) and read the same way (8-bit grey, RGB or RGBA, no
-interlace, every row filter), and ``MetricWriter(tensorboard=True)``
-raises instead of writing event files.
+interlace, every row filter; ``decode_png`` takes the bytes), and
+``MetricWriter(tensorboard=True)`` raises instead of writing event files.
 """
 
 from __future__ import annotations
@@ -71,12 +71,17 @@ _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}          # colour type -> channels
 
 
 def read_png(path: str) -> Array:
-    """(H, W, 3) uint8 RGB pixels of an 8-bit non-interlaced grey, RGB or
-    RGBA PNG: grey is repeated over the three channels and alpha dropped,
-    as PIL's ``convert("RGB")`` does.  Other PNGs raise
-    NotImplementedError."""
+    """(H, W, 3) uint8 RGB pixels of the PNG file at ``path`` (see
+    ``decode_png``)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "PNG data") -> Array:
+    """(H, W, 3) uint8 RGB pixels of an 8-bit non-interlaced grey, RGB or
+    RGBA PNG's bytes: grey is repeated over the three channels and alpha
+    dropped, as PIL's ``convert("RGB")`` does.  Other PNGs raise
+    NotImplementedError."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, header = 8, [], None
@@ -96,8 +101,8 @@ def read_png(path: str) -> Array:
     if depth != 8 or interlace or color not in _PNG_CHANNELS:
         raise NotImplementedError(
             f"{path}: PNG of bit depth {depth}, colour type {color}, interlace "
-            f"{interlace}; the port reads 8-bit non-interlaced grey, RGB and RGBA "
-            "(ROADMAP: image readers)")
+            f"{interlace}; the port reads 8-bit non-interlaced grey, RGB and RGBA; pack "
+            "the images once with `python -m smmdax.data.convert` on a host with PIL")
     bpp = _PNG_CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * bpp)
     out = np.zeros((h, w * bpp), np.uint8)

@@ -3,7 +3,9 @@ against the JAX package's ``compute_scores.py``: on precomputed features
 both print the same FID, KID and ``--compare`` lines (float64 numpy arm
 in both); with a random-weights Inception asset it scores images with
 ``inception_v3`` and prints IS, as the CLI's eval branch and the
-trainer's scoring event do; a PNG directory decodes as PIL decodes it."""
+trainer's scoring event do; PNG and JPEG directories decode as PIL decodes
+them, and a directory of mixed sizes is resized to its modal size as
+``compute_scores.py`` resizes it."""
 
 import struct
 import zlib
@@ -131,16 +133,58 @@ def test_png_directory_decodes_as_pil(tmp_path):
     np.testing.assert_array_equal(got, jcs._load(str(d)))
 
 
+def _jpeg_bytes(arr, **opts) -> bytes:
+    import io
+    Image = pytest.importorskip("PIL.Image")
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", **opts)
+    return buf.getvalue()
+
+
+def test_mixed_size_jpeg_directory_reads_as_jax(tmp_path, capsys):
+    """JPEG and PNG files of several sizes: decoded to PIL's bytes, resized
+    to the modal size (PIL's (w, h), ties in order of first appearance)
+    with PIL's bilinear filter, and JAX's line printed."""
+    from smmdax_torch.utils import write_png
+    rng = np.random.default_rng(6)
+    sizes = [(20, 24), (17, 31), (20, 24), (17, 31), (33, 12), (20, 24)]
+    for i, (h, w) in enumerate(sizes):
+        arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        if i == 4:
+            write_png(str(tmp_path / f"{i}.png"), arr)
+        else:
+            (tmp_path / f"{i}.jpg").write_bytes(_jpeg_bytes(arr, quality=80 + i,
+                                                            subsampling=i % 3))
+    want = jcs._load(str(tmp_path))
+    want_out = capsys.readouterr().out
+    got = tcs._load(str(tmp_path))
+    assert capsys.readouterr().out == want_out
+    assert "3 distinct image sizes; resizing all to 24x20" in want_out
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
 @pytest.mark.parametrize("case", ["jpeg", "mixed sizes"])
 def test_unreadable_directories_raise(tmp_path, case):
+    """JPEG files and mixed sizes are read now (above); what still raises
+    is an image the port cannot decode: a progressive JPEG, and in a set of
+    mixed sizes a webp file named .jpg, each naming its ROADMAP item."""
+    import io
+    Image = pytest.importorskip("PIL.Image")
     from smmdax_torch.utils import write_png
     write_png(str(tmp_path / "a.png"), np.zeros((4, 4, 3), np.uint8))
     if case == "jpeg":
-        (tmp_path / "b.jpg").write_bytes(b"\xff\xd8\xff")
+        (tmp_path / "b.jpg").write_bytes(_jpeg_bytes(np.zeros((4, 4, 3), np.uint8),
+                                                     progressive=True))
+        item = "progressive JPEG"
     else:
         write_png(str(tmp_path / "b.png"), np.zeros((5, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP: image readers"):
+        buf = io.BytesIO()
+        Image.fromarray(np.zeros((6, 4, 3), np.uint8)).save(buf, format="WEBP")
+        (tmp_path / "c.jpg").write_bytes(buf.getvalue())
+        item = "a webp decoder"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
         tcs._load(str(tmp_path))
+
 
 def test_empty_directory_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="no images"):

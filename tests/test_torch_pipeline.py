@@ -3,10 +3,11 @@ JAX package's: batches keyed by (seed, step) are byte-identical, for the
 synthetic source and for in-memory uint8 data read from CIFAR-10 pickles
 (with and without flips, float and uint8 batches); the asset dispatch
 substitutes synthetic data like JAX when nothing is there and raises when
-an asset the port cannot read yet is there."""
+an asset is there but cannot be read."""
 
 import os
 import pickle
+import struct
 
 import numpy as np
 import pytest
@@ -73,11 +74,22 @@ def test_mnist_and_substitution(tmp_path, capsys):
     assert "substituting the procedural synthetic source" in capsys.readouterr().out
 
 
+# what each unreadable asset raises: not an image, a 1-byte LMDB, no records
+_ERRORS = {"celeba": (NotImplementedError, "decodes JPEG and PNG"),
+           "lsun": (struct.error, None), "imagenet64": (ValueError, "no records found")}
+
+
 @pytest.mark.parametrize("dataset, path", [("celeba", "celeba/img_0001.jpg"),
                                            ("lsun", "lsun/bedroom_train_lmdb/data.mdb"),
                                            ("imagenet64", "imagenet64/train.tfrecord-0")])
-def test_unreadable_assets_raise(tmp_path, dataset, path):
+def test_unreadable_assets_raise(tmp_path, dataset, path, capsys):
+    """An asset that is there but cannot be read raises, when the dataset
+    is made or at its first batch, and never turns into synthetic data
+    (the port reads these formats now: ``tests/test_torch_readers.py``)."""
     os.makedirs(os.path.dirname(tmp_path / path), exist_ok=True)
     (tmp_path / path).write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="ROADMAP: image readers"):
-        tpipe.make_dataset(Config(dataset=dataset, data_dir=str(tmp_path)))
+    error, match = _ERRORS[dataset]
+    with pytest.raises(error, match=match):
+        src = tpipe.make_dataset(Config(dataset=dataset, data_dir=str(tmp_path)))
+        src.batch(2, key=0)
+    assert "substituting" not in capsys.readouterr().out
