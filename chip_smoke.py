@@ -111,8 +111,9 @@ Phases, each fatal on failure:
    (e) the trained EMA generator exported at batch 512 and loaded in a
    fresh process with torch alone, equal to ``sample`` on the same z to
    1e-6, and images/s of the loaded program against eager ``sample``;
-11. real image formats, from the committed JPEG fixtures
-   (``tests/fixtures/port_images``, with PIL's hashes in their manifest):
+11. real image formats, from the committed JPEG and webp fixtures
+   (``tests/fixtures/port_images`` and ``port_webp``, with PIL's hashes in
+   their manifests):
    (a) the native JPEG decoder built with g++ from the checkout (its
    build time printed); every fixture decoded to PIL's recorded bytes and
    to the plain decoder's, its ``center_crop_resize`` at 160 (crop 160) and
@@ -120,9 +121,10 @@ Phases, each fatal on failure:
    resize, the refused layouts (progressive, CMYK) raising in both
    decoders; ms per image of decode and crop / resize at 1 and 8 threads,
    178x218 and 256x256, the latter also with the numpy resize in place of
-   the native one (8 threads); (b) a CelebA-layout directory of 1,024 JPEGs, an
-   LSUN LMDB of 1,024 records (the port's ``write_lmdb``) and a TFRecord
-   shard of 256 encoded records framed here, all copies of the fixtures;
+   the native one (8 threads); (b) a CelebA-layout directory of 1,024
+   JPEGs, an LSUN LMDB of 1,024 lossy webp records at 256 px (the official
+   LSUN encoding; the port's ``write_lmdb``) and a TFRecord shard of 256
+   encoded JPEG records framed here, all copies of the fixtures;
    (c) ``exp/celeba160_sn_smmd_resnet.sh``'s flags at full width (gf / df
    32, B 64, 160 px, K 4, bf16, hutchinson) host-fed from the JPEG
    directory, cut to 12 macro-steps with a checkpoint at 6, the drawn
@@ -131,14 +133,29 @@ Phases, each fatal on failure:
    the log windows after warm-up over all their wall time), host ms per
    macro-batch (384 decodes and crops) against ms per macro-step, and the
    launches of kernels 1-2; (d) ``exp/real_formats_rehearsal.sh``'s
-   ``lsun_lmdb_host`` arm (mmd, DCGAN, 64 px) from the LMDB, 48 macro-steps
-   (images/s over the windows after the first, as for every arm), the packing
-   tool ``python -m smmdax_torch.data.convert lsun`` in a fresh process
-   (images/s, the cache equal to the reader's decodes), then its
-   ``lsun_packed_device`` arm (sn-smmd, ResNet, 64 px, K 4, device-resident),
-   images/s of both; (e) a few macro-steps of the ResNet at 64 px from the
-   ImageNet-64 TFRecord shard, and one macro-batch of its records on 1 and
-   on 8 decode threads.
+   ``lsun_lmdb_host`` arm (mmd, DCGAN, 64 px) from the webp LMDB, 48
+   macro-steps (images/s over the windows after the first, as for every
+   arm), the packing tool ``python -m smmdax_torch.data.convert lsun`` in a
+   fresh process (images/s, the cache equal to the reader's decodes), then
+   its ``lsun_packed_device`` arm (sn-smmd, ResNet, 64 px, K 4,
+   device-resident), images/s of both; (e) a few macro-steps of the ResNet
+   at 64 px from the ImageNet-64 TFRecord shard, and one macro-batch of its
+   records on 1 and on 8 decode threads; (f) webp and the writers: the
+   native webp decoder built with g++ from the checkout (its build time
+   printed), every webp fixture (lossy, lossless, extended) decoded to
+   PIL's recorded bytes and 64 px crop, the animated fixture and truncated
+   files raising, ms per image at 256 px (lossy q75 and lossless, decode
+   and crop / resize to 64) on 1 and 8 threads (this part runs right after
+   (a)); then ``exp/lsun64_sn_smmd_resnet.sh``'s flags at full width
+   (sn-smmd, rq, ResNet, 64 px, B 64, dof 16, 5 critic updates, K 4, bf16,
+   hutchinson) host-fed from the webp LMDB with ``--tensorboard true``,
+   cut to 12 macro-steps with a checkpoint at 6, as (c): the drawn
+   records' crops held to PIL's hashes, a resume in a fresh process equal
+   bit for bit, images/s, host ms per macro-batch against ms per
+   macro-step and the launches of kernels 1-2; its event files read back
+   with ``tfevents.read_events`` (both CRCs) equal to the JSONL rows; and
+   the toy's GIF from the committed frames (``tests/fixtures/port_gif``)
+   equal to the SHA-256 in their manifest.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -2583,11 +2600,30 @@ LSUN_PACKED_FLAGS = ["--dataset", "lsun", "--lsun_category", "bedroom_train",
                      "--data_placement", "device"] + RESNET64_FLAGS
 IMAGENET64_TFRECORD_FLAGS = ["--dataset", "imagenet64"] + RESNET64_FLAGS
 IMAGENET64_STEPS = 16
+# part (f): the webp fixtures (PIL's hashes in their manifest), the toy
+# frames and their GIF's hash, and exp/lsun64_sn_smmd_resnet.sh cut as
+# celeba160 is, with the TensorBoard writer on
+WEBP_FIXTURE_DIR = os.path.join("tests", "fixtures", "port_webp")
+GIF_FIXTURE_DIR = os.path.join("tests", "fixtures", "port_gif")
+LSUN_WEBP_FIXTURES = ("lossy_q75_256x256.webp", "lossy_q75_256x341.webp")   # the LMDB's values
+WEBP_TIMINGS = (("lossy q75 256x256 -> 64", "lossy_q75_256x256.webp"),
+                ("lossless 256x256 -> 64", "lossless_levels16_256x256.webp"),
+                ("lossy q75 256x341 -> 64", "lossy_q75_256x341.webp"))
+LSUN64_TRAIN_FLAGS = [
+    "--is_train", "true", "--dataset", "lsun", "--architecture", "resnet",
+    "--model", "sn-smmd", "--kernel", "rq", "--batch_size", "64", "--output_size", "64",
+    "--dof_dim", "16", "--learning_rate", "1e-4", "--dsteps", "5", "--scaling_coeff", "10.0",
+    "--max_iteration", "150000", "--MMD_lr_scheduler", "true", "--compute_scores", "true",
+    "--score_every", "5000", "--compute_dtype", "bfloat16",
+    "--scaling_grad_estimator", "hutchinson", "--steps_per_dispatch", "4"]
+LSUN64_CUT_FLAGS = CELEBA160_CUT_FLAGS + ["--tensorboard", "true"]
+LSUN64_STEPS = 12
 
 
-def _fixtures(tree: str) -> list:
-    """The committed JPEG fixtures: (manifest entry, bytes)."""
-    root = os.path.join(tree, FIXTURE_DIR)
+def _fixtures(tree: str, where: str = FIXTURE_DIR) -> list:
+    """The committed image fixtures (JPEG by default): (manifest entry,
+    bytes)."""
+    root = os.path.join(tree, where)
     with open(os.path.join(root, "manifest.json")) as f:
         entries = json.load(f)["files"]
     out = []
@@ -2712,22 +2748,26 @@ def _tf_example(jpeg: bytes) -> bytes:
     return _pb(1, _pb(1, entry))                        # Example.features
 
 
-def make_format_assets(data_dir: str, fixtures: list) -> dict:
+def make_format_assets(data_dir: str, fixtures: list, webp: list) -> dict:
     """(b) Training-size assets from the fixtures, written by this script
-    and the port's own writer: a CelebA-layout directory, an LSUN LMDB and
-    one TFRecord shard (framed here; CRCs left zero: neither reader checks
-    them)."""
+    and the port's own writer: a CelebA-layout directory of JPEGs, an LSUN
+    LMDB of lossy webp records at 256 px (the official LSUN encoding) and
+    one TFRecord shard of JPEGs (framed here; CRCs left zero: neither
+    reader checks them)."""
     import struct
     from smmdax_torch.data.lmdb_store import write_lmdb
     celeba = [d for e, d in fixtures if e["name"].startswith("celeba_")]
     lsun = [d for e, d in fixtures if e["name"].startswith("lsun_")]
+    by_name = {e["name"]: d for e, d in webp}
+    lsun_webp = [by_name[n] for n in LSUN_WEBP_FIXTURES]
     root = os.path.join(data_dir, "celeba")
     os.makedirs(root)
     for i in range(FORMAT_FILES):
         with open(os.path.join(root, f"{i:06d}.jpg"), "wb") as f:
             f.write(celeba[i % len(celeba)])
     env = os.path.join(data_dir, "lsun", "bedroom_train_lmdb")
-    write_lmdb(env, ((f"{i:016x}".encode(), lsun[i % len(lsun)]) for i in range(FORMAT_FILES)))
+    write_lmdb(env, ((f"{i:016x}".encode(), lsun_webp[i % len(lsun_webp)])
+                     for i in range(FORMAT_FILES)))
     shard = os.path.join(data_dir, "imagenet64", "train.tfrecord-00000-of-00001")
     os.makedirs(os.path.dirname(shard))
     with open(shard, "wb") as f:
@@ -2739,8 +2779,8 @@ def make_format_assets(data_dir: str, fixtures: list) -> dict:
                  lmdb_mb=os.path.getsize(os.path.join(env, "data.mdb")) / 2**20,
                  tfrecord_mb=os.path.getsize(shard) / 2**20)
     log(f"formats: {FORMAT_FILES} CelebA JPEGs ({sizes['celeba_mb']:.1f} MB), an LSUN LMDB of "
-        f"{FORMAT_FILES} records ({sizes['lmdb_mb']:.1f} MB), a TFRecord shard of "
-        f"{TFRECORD_RECORDS} ({sizes['tfrecord_mb']:.1f} MB)")
+        f"{FORMAT_FILES} lossy webp records ({sizes['lmdb_mb']:.1f} MB), a TFRecord shard of "
+        f"{TFRECORD_RECORDS} JPEGs ({sizes['tfrecord_mb']:.1f} MB)")
     return sizes
 
 
@@ -2772,37 +2812,39 @@ def _finite_rows(rows: list, what: str) -> None:
         fail(f"{what}: non-finite logged metrics {bad}")
 
 
-def run_celeba160(tmp: str, data_dir: str, fixtures: list, results: dict, tree: str) -> dict:
-    """(c) exp/celeba160_sn_smmd_resnet.sh at full width, host-fed from the
-    JPEG directory, 12 macro-steps with a checkpoint at 6; a run stopped at
-    6 and resumed in a fresh process equals it bit for bit.  Returns the
-    kernels' launches in the straight run."""
+def _host_fed_run(tmp: str, data_dir: str, tree: str, name: str, flags: list, steps: int,
+                  source_cls, items: int, crop_hashes: list):
+    """A training run of ``flags`` host-fed from ``data_dir``, ``steps``
+    macro-steps with a checkpoint at half; the crops of step 0's first
+    draws held to ``crop_hashes`` (PIL's, by item index modulo their
+    count); a run stopped at half and resumed in a fresh process equal to
+    it bit for bit.  Returns (the run's numbers, the straight run's
+    trainer)."""
     import dataclasses
     import numpy as np
     import torch
     from smmdax_torch import checkpoint
     from smmdax_torch.configs import config_from_args
     from smmdax_torch.cuda import mmd_kernel as mk
-    from smmdax_torch.data.pipeline import CelebASource
     from smmdax_torch.trainer import Trainer
 
-    def cfg_for(run: str, steps: int):
-        return config_from_args(CELEBA160_TRAIN_FLAGS + CELEBA160_CUT_FLAGS + _dirs(tmp, run)
-                                + ["--data_dir", data_dir, "--max_iteration", str(steps)])
+    def cfg_for(run: str, n: int):
+        return config_from_args(flags + _dirs(tmp, run)
+                                + ["--data_dir", data_dir, "--max_iteration", str(n)])
 
     with deterministic_torch():
-        cfg_a = cfg_for("celebaA", CELEBA160_STEPS)
+        cfg_a = cfg_for(f"{name}A", steps)
         trainer = Trainer(cfg_a, device="cuda")
         src = trainer.source
-        if not isinstance(src, CelebASource) or len(src.files) != FORMAT_FILES:
-            fail(f"celeba160: the trainer's source is {type(src).__name__}")
+        n = len(src.files) if hasattr(src, "files") else len(src.reader)
+        if not isinstance(src, source_cls) or n != items:
+            fail(f"{name}: the trainer's source is {type(src).__name__} of {n}")
         # what the trainer is fed is PIL's bytes: the crops of step 0's
         # first draws against their fixtures' recorded hashes
-        want = [e["crop160_sha256"] for e, _ in fixtures if e["name"].startswith("celeba_")]
-        drawn = np.random.default_rng((cfg_a.random_seed, 0)).integers(0, FORMAT_FILES, 8)
+        drawn = np.random.default_rng((cfg_a.random_seed, 0)).integers(0, items, 8)
         for j in drawn:
-            if _sha256(src.decode_u8(int(j))) != want[int(j) % len(want)]:
-                fail(f"celeba160: file {j} decodes to other bytes than PIL's")
+            if _sha256(src.decode_u8(int(j))) != crop_hashes[int(j) % len(crop_hashes)]:
+                fail(f"{name}: item {j} decodes to other bytes than PIL's")
         counters = mk.kernel_launch_counters()
         for k in counters:
             k.launches = 0
@@ -2812,47 +2854,61 @@ def run_celeba160(tmp: str, data_dir: str, fixtures: list, results: dict, tree: 
         wall = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in counters}
         rows = _log_rows(trainer)
-        cfg_b = cfg_for("celebaB", CELEBA160_STEPS // 2)
+        cfg_b = cfg_for(f"{name}B", steps // 2)
         Trainer(cfg_b, device="cuda").train()
     missing = [k for k in ("pair_sum", "pair_sum_grad_a") if launches[k] == 0]
     if missing:
-        fail(f"celeba160: the run did not launch {missing} ({launches})")
-    _finite_rows(rows, "celeba160")
-    out = os.path.join(tmp, "celeba_resumed.pt")
+        fail(f"{name}: the run did not launch {missing} ({launches})")
+    _finite_rows(rows, name)
+    out = os.path.join(tmp, f"{name}_resumed.pt")
     proc = multiprocessing.get_context("spawn").Process(
         target=_resume_worker, args=(tree, dataclasses.asdict(
-            cfg_b.replace(max_iteration=CELEBA160_STEPS)), "cuda", out))
+            cfg_b.replace(max_iteration=steps)), "cuda", out))
     proc.start()
     proc.join(600)
     if proc.is_alive():
         proc.kill()
         proc.join()
     if proc.exitcode != 0 or not os.path.exists(out):
-        fail(f"celeba160: the resuming process exited with {proc.exitcode}")
+        fail(f"{name}: the resuming process exited with {proc.exitcode}")
     resumed = torch.load(out, weights_only=True)
-    if resumed["resumed_at"] != CELEBA160_STEPS // 2:
-        fail(f"celeba160: resumed at step {resumed['resumed_at']}")
+    if resumed["resumed_at"] != steps // 2:
+        fail(f"{name}: resumed at step {resumed['resumed_at']}")
     diffs = _state_diffs(checkpoint.state_dict(state_a), resumed["state"])
     if diffs:
-        fail(f"celeba160: the resumed run differs from the straight one at {diffs[:20]}")
+        fail(f"{name}: the resumed run differs from the straight one at {diffs[:20]}")
     # host time to build one macro-batch (the prefetch thread's work per
     # macro-step) against the trainer's ms per macro-step after warm-up
     ips = _steady_rate(rows, cfg_a.warmup_iterations)
-    images = _images_per_macro_step(trainer, CELEBA160_STEPS)
+    images = _images_per_macro_step(trainer, steps)
     step_ms = 1e3 * images / ips
     res = dict(wall_s=wall, launches=launches, images_per_s=ips, ms_per_macro_step=step_ms,
-               host_ms_per_macro_batch=_host_batch_ms(trainer, CELEBA160_STEPS),
+               host_ms_per_macro_batch=_host_batch_ms(trainer, steps),
                images_per_macro_batch=images, resumed_identical=True,
+               launches_per_macro_step={k: v / steps for k, v in launches.items()},
                windows=[r["images_per_sec"] for r in rows if "images_per_sec" in r])
-    results["formats"]["celeba160"] = res
-    log(f"celeba160: {CELEBA160_STEPS} macro-steps host-fed from {FORMAT_FILES} JPEGs in "
+    log(f"{name}: {steps} macro-steps host-fed from {items} {type(src).__name__} items in "
         f"{wall:.2f} s; trainer {ips:.1f} images/s over the windows after warm-up "
         f"({step_ms:.1f} ms per macro-step); one macro-batch of {images} decodes and crops "
         f"{res['host_ms_per_macro_batch']:.1f} ms on the host; launches {launches}; windows "
         + ", ".join(f"{v:.1f}" for v in res["windows"]))
-    log("celeba160: stopped at 6 and resumed in a fresh process, equal to the straight run "
-        "bit for bit (deterministic algorithms on)")
-    return launches
+    log(f"{name}: stopped at {steps // 2} and resumed in a fresh process, equal to the "
+        "straight run bit for bit (deterministic algorithms on)")
+    return res, trainer
+
+
+def run_celeba160(tmp: str, data_dir: str, fixtures: list, results: dict, tree: str) -> dict:
+    """(c) exp/celeba160_sn_smmd_resnet.sh at full width, host-fed from the
+    JPEG directory, 12 macro-steps with a checkpoint at 6; a run stopped at
+    6 and resumed in a fresh process equals it bit for bit.  Returns the
+    kernels' launches in the straight run."""
+    from smmdax_torch.data.pipeline import CelebASource
+    want = [e["crop160_sha256"] for e, _ in fixtures if e["name"].startswith("celeba_")]
+    res, _ = _host_fed_run(tmp, data_dir, tree, "celeba160",
+                           CELEBA160_TRAIN_FLAGS + CELEBA160_CUT_FLAGS, CELEBA160_STEPS,
+                           CelebASource, FORMAT_FILES, want)
+    results["formats"]["celeba160"] = res
+    return res["launches"]
 
 
 def _train_arm(tmp: str, data_dir: str, run: str, flags: list, steps: int) -> dict:
@@ -2979,20 +3035,169 @@ def run_imagenet64_tfrecord(tmp: str, data_dir: str, results: dict) -> None:
         f"thread, {pool_ms[8]:.1f} ms on 8")
 
 
-def run_formats(tmp: str, results: dict, tree: str) -> dict:
+def check_webp(tree: str, results: dict) -> list:
+    """(f) The native webp decoder built from the checkout; every webp
+    fixture (lossy and lossless, simple and extended) decoded to PIL's
+    recorded bytes and its 64 px crop to PIL's recorded hash; the animated
+    fixture and truncated files raising.  ms per image (decode and crop /
+    resize to 64) at 1 and 8 threads.  Returns the fixtures."""
+    import concurrent.futures as cf
+    from smmdax_torch.data import image, native
+    t0 = time.perf_counter()
+    native.webp_library()
+    build_s = time.perf_counter() - t0
+    fixtures = _fixtures(tree, WEBP_FIXTURE_DIR)
+    read = 0
+    for e, data in fixtures:
+        name = e["name"]
+        if "refuse" in e:
+            try:
+                native.decode_webp(data)
+            except NotImplementedError:
+                continue
+            fail(f"webp: {name} decoded, must be refused")
+        got = native.decode_webp(data)
+        if got.shape != (e["height"], e["width"], 3) or _sha256(got) != e["rgb_sha256"]:
+            fail(f"webp: {name} differs from PIL's bytes")
+        if _sha256(image.center_crop_resize(got, 64)) != e["crop64_sha256"]:
+            fail(f"webp: {name} center_crop_resize at 64 differs from PIL's")
+        for cut in (len(data) // 2, len(data) - 1):
+            try:
+                native.decode_webp(data[:cut])
+            except ValueError:
+                continue
+            fail(f"webp: {name} cut to {cut} bytes decoded, must raise")
+        read += 1
+    by_name = {e["name"]: d for e, d in fixtures}
+    timings = {}
+    for label, name in WEBP_TIMINGS:
+        data = by_name[name]
+
+        def one(data=data):
+            return image.center_crop_resize(native.decode_webp(data), 64)
+
+        for _ in range(8):
+            one()
+        row = {}
+        for threads in (1, 8):
+            t0 = time.perf_counter()
+            if threads == 1:
+                for _ in range(DECODE_TIMING_IMAGES):
+                    one()
+            else:
+                with cf.ThreadPoolExecutor(threads) as pool:
+                    list(pool.map(lambda _: one(), range(DECODE_TIMING_IMAGES)))
+            row[f"ms_per_image_{threads}_thread"] = (
+                1e3 * (time.perf_counter() - t0) / DECODE_TIMING_IMAGES)
+        timings[label] = row
+    results["formats"]["webp"] = dict(build_s=build_s, fixtures_read=read,
+                                      fixtures_refused=len(fixtures) - read, timings=timings)
+    log(f"webp: built in {build_s:.1f} s; {read} fixtures (lossy and lossless) equal PIL's "
+        f"hashes, crops at 64 too; {len(fixtures) - read} animated refused, truncated files "
+        "raise")
+    for label, row in timings.items():
+        log(f"webp: {label}: {row['ms_per_image_1_thread']:.3f} ms per image on 1 thread, "
+            f"{row['ms_per_image_8_thread']:.3f} on 8 ({DECODE_TIMING_IMAGES} images, decode "
+            "and crop / resize)")
+    return fixtures
+
+
+def check_event_files(trainer) -> int:
+    """The run's TensorBoard event files read back with ``read_events``
+    (both CRCs of every record checked): one version event, then each log
+    row's tags, steps and float32 values as in the JSONL.  Returns the
+    count of scalar events."""
+    import glob
+    import numpy as np
+    from smmdax_torch.tfevents import read_events
+    cfg = trainer.cfg
+    files = glob.glob(os.path.join(cfg.log_dir, "tb", cfg.run_name(), "events.out.tfevents.*"))
+    if len(files) != 1:
+        fail(f"tensorboard: {len(files)} event files under {cfg.log_dir}")
+    events = read_events(files[0])
+    if events[0]["file_version"] != "brain.Event:2" or events[0]["values"]:
+        fail(f"tensorboard: first event {events[0]}")
+    want = [(r["step"], k, np.float32(v)) for r in _log_rows(trainer)
+            for k, v in r.items() if k not in ("step", "time")]
+    got = [(e["step"],) + e["values"][0] for e in events[1:] if len(e["values"]) == 1]
+    if len(got) != len(events) - 1 or len(got) != len(want) or any(
+            (gs, gk) != (ws, wk) or np.float32(gv).tobytes() != wv.tobytes()
+            for (gs, gk, gv), (ws, wk, wv) in zip(got, want)):
+        fail(f"tensorboard: events {got[:8]} differ from the JSONL's {want[:8]}")
+    return len(got)
+
+
+def check_gif(tmp: str, tree: str, results: dict) -> None:
+    """The toy's GIF from the committed frames (the card has no matplotlib
+    to draw them) equal to the SHA-256 recorded in their manifest."""
+    import hashlib
+    import shutil
+    from smmdax_torch.viz import assemble_toy_animation
+    root = os.path.join(tree, GIF_FIXTURE_DIR)
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    out_dir = os.path.join(tmp, "toy_frames")
+    os.makedirs(out_dir)
+    for name in manifest["frames"]:
+        shutil.copy(os.path.join(root, name), out_dir)
+    t0 = time.perf_counter()
+    path = assemble_toy_animation(out_dir, manifest["duration_ms"])
+    secs = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    if digest != manifest["gif_sha256"]:
+        fail(f"gif: {digest} is not the recorded {manifest['gif_sha256']}")
+    results["formats"]["gif"] = dict(frames=len(manifest["frames"]), seconds=secs,
+                                     bytes=os.path.getsize(path))
+    log(f"gif: {len(manifest['frames'])} committed toy frames stitched in {secs:.2f} s, equal to "
+        "the recorded SHA-256")
+
+
+def run_lsun64(tmp: str, data_dir: str, webp: list, results: dict, tree: str) -> dict:
+    """(f) exp/lsun64_sn_smmd_resnet.sh at full width, host-fed from the
+    LMDB of lossy webp records with the TensorBoard writer on, 12
+    macro-steps with a checkpoint at 6; the crops of the drawn records held
+    to PIL's hashes; a run stopped at 6 and resumed in a fresh process
+    equal to it bit for bit; the event files read back equal to the JSONL.
+    Its own data directory holds only the LMDB (not part (d)'s cache).
+    Returns the kernels' launches in the straight run."""
+    from smmdax_torch.data.pipeline import LSUNSource
+    own = os.path.join(tmp, "lsun64_data", "lsun")
+    os.makedirs(own)
+    os.symlink(os.path.join(data_dir, "lsun", "bedroom_train_lmdb"),
+               os.path.join(own, "bedroom_train_lmdb"))
+    crops = {e["name"]: e.get("crop64_sha256") for e, _ in webp}
+    want = [crops[n] for n in LSUN_WEBP_FIXTURES]
+    res, trainer = _host_fed_run(tmp, os.path.dirname(own), tree, "lsun64",
+                                 LSUN64_TRAIN_FLAGS + LSUN64_CUT_FLAGS, LSUN64_STEPS,
+                                 LSUNSource, FORMAT_FILES, want)
+    res["scalar_events"] = check_event_files(trainer)
+    log(f"lsun64: {res['scalar_events']} scalar events in the TensorBoard file, equal to the "
+        "JSONL rows (float32), CRCs checked")
+    results["formats"]["lsun64"] = res
+    return res["launches"]
+
+
+def run_formats(tmp: str, results: dict, tree: str) -> tuple:
     """Phase 11 (see the module docstring).  Returns the kernels' launches
-    in the celeba160 run."""
+    in the celeba160 run and in the lsun64 run."""
     t_phase = time.perf_counter()
     results["formats"] = {}
     fixtures = check_decoder(tree, results)
+    webp = check_webp(tree, results)
     data_dir = os.path.join(tmp, "formats_data")
-    results["formats"]["assets"] = make_format_assets(data_dir, fixtures)
+    results["formats"]["assets"] = make_format_assets(data_dir, fixtures, webp)
     launches = run_celeba160(tmp, data_dir, fixtures, results, tree)
     run_lsun_arms(tmp, data_dir, results, tree)
     run_imagenet64_tfrecord(tmp, data_dir, results)
+    t_f = time.perf_counter()
+    lsun64 = run_lsun64(tmp, data_dir, webp, results, tree)
+    check_gif(tmp, tree, results)
+    results["formats"]["lsun64_and_gif_s"] = time.perf_counter() - t_f
     results["formats"]["phase_s"] = time.perf_counter() - t_phase
-    log(f"formats phase: {results['formats']['phase_s']:.1f} s")
-    return launches
+    log(f"formats phase: {results['formats']['phase_s']:.1f} s (the lsun64 run and the GIF "
+        f"{results['formats']['lsun64_and_gif_s']:.1f} s of it)")
+    return launches, lsun64
 
 
 def profile_only(results: dict) -> int:
@@ -3166,7 +3371,7 @@ def main(argv=None) -> int:
 
     # phase 11
     with tempfile.TemporaryDirectory() as tmp:
-        formats = run_formats(tmp, results, tree)
+        formats, lsun64 = run_formats(tmp, results, tree)
 
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
@@ -3221,8 +3426,10 @@ def main(argv=None) -> int:
             for label, t in ranks.items()}
         # phase 10: the flagship run with one 25,000-sample Inception event
         kern["inception_trainer_launches"] = inception[counter]
-        # phase 11: the celeba160 run host-fed from the JPEG directory
+        # phase 11: the celeba160 run host-fed from the JPEG directory, and
+        # the lsun64 run host-fed from the webp LMDB
         kern["celeba160_launches"] = formats[counter]
+        kern["lsun64_launches"] = lsun64[counter]
     card = card_line()
     results.update(kernels=kernels, card=card)
     write_results(args.out, results)

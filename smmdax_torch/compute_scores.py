@@ -5,7 +5,8 @@
 
 REAL/FAKE are .npy/.npz files of images (N,H,W,C in [-1,1] or uint8) or
 of precomputed features (N,d, ndim==2), or directories of PNG/JPEG images
-(decoded without PIL, to PIL's bytes; mixed sizes are resized to the
+(decoded without PIL, to PIL's bytes, whatever the name says: a webp file
+named .jpg is read as PIL reads it; mixed sizes are resized to the
 modal size with PIL's bilinear filter, as ``compute_scores.py`` does).
 Prints FID, KID (mean +- std) and, when class probabilities are
 available, IS.

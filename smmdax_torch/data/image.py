@@ -4,9 +4,9 @@ The JAX package decodes with PIL and resizes with ``Image.BILINEAR``; the
 machine with the card has no PIL, and batches must stay byte-identical
 to the JAX package's.  So:
 
-* ``decode_image`` reads JPEG with the native decoder (``data/native.py``,
-  PIL's bytes) and PNG with ``utils.decode_png``; webp, and any other
-  format, raises.
+* ``decode_image`` reads JPEG and webp (lossy and lossless) with the
+  native decoders (``data/native.py``, PIL's bytes) and PNG with
+  ``utils.decode_png``; any other format (and an animated webp) raises.
 * ``resize_bilinear_pil`` is Pillow's ``ImagingResample`` with the
   bilinear filter: per axis, the triangle filter's support widened by the
   downscale factor, weights normalised in float64 and turned into fixed
@@ -64,11 +64,11 @@ def decode_image(data: bytes) -> Array:
         from smmdax_torch.utils import decode_png
         return decode_png(bytes(data))
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise NotImplementedError(
-            f"webp image: the port has no webp decoder (ROADMAP: a webp decoder); "
-            f"{PACK_ROUTE}")
+        from smmdax_torch.data.native import decode_webp
+        return decode_webp(data)
     raise NotImplementedError(
-        f"image format with header {head[:8]!r}: the port decodes JPEG and PNG; {PACK_ROUTE}")
+        f"image format with header {head[:8]!r}: the port decodes JPEG, PNG and webp; "
+        f"{PACK_ROUTE}")
 
 
 @functools.lru_cache(maxsize=64)

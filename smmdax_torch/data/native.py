@@ -1,6 +1,8 @@
-"""Build and load the native JPEG decoder and resize (``data/_native/jpeg.cpp``).
+"""Build and load the native image libraries (``data/_native/*.cpp``).
 
-The source is compiled with ``g++ -O3 -shared -fPIC`` at first use into
+Two sources, each its own library: ``jpeg.cpp`` (the JPEG decoder and
+PIL's bilinear resize) and ``webp.cpp`` (the webp decoder, lossless and
+lossy).  Each is compiled with ``g++ -O3 -shared -fPIC`` at first use into
 ``smmdax_torch/_build/`` (listed in ``.gitignore``), under a name hashed
 from the source, the flags and the machine, and bound with ``ctypes``
 (plain C interface).  The compiler writes to a temporary name that
@@ -8,9 +10,11 @@ from the source, the flags and the machine, and bound with ``ctypes``
 load half a file.  A ``ctypes`` call releases the GIL: a pool of threads
 decodes side by side.
 
-There is no fallback: if the library cannot be built or loaded, decoding
-raises.  The plain decoder (``data/jpeg.py``) is the reference the tests
-hold this one to, never a substitute for it.
+There is no fallback: if a library cannot be built or loaded, decoding
+raises.  The plain JPEG decoder (``data/jpeg.py``) is the reference the
+tests hold the native one to, never a substitute for it; the webp decoder
+is held to PIL's decodes (live in the tests, as recorded digests on a
+machine without PIL).
 """
 
 from __future__ import annotations
@@ -27,51 +31,60 @@ import numpy as np
 from smmdax_torch.data.jpeg import unsupported
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(PACKAGE_DIR, "data", "_native", "jpeg.cpp")
+NATIVE_DIR = os.path.join(PACKAGE_DIR, "data", "_native")
+SOURCE = os.path.join(NATIVE_DIR, "jpeg.cpp")
+WEBP_SOURCE = os.path.join(NATIVE_DIR, "webp.cpp")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
 _LIB = None
+_WEBP_LIB = None
 _ERRLEN = 512
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(source: str = None, stem: str = "libjpeg_decode") -> str:
+    with open(SOURCE if source is None else source, "rb") as f:
         h = hashlib.sha256(f.read())
     h.update(" ".join(FLAGS).encode() + platform.machine().encode())
-    return os.path.join(BUILD_DIR, f"libjpeg_decode_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the decoder if its library is not current; its path.  Every
-    failure raises ``RuntimeError``: a missing source or compiler is not
-    the missing dataset that a ``FileNotFoundError`` would announce."""
+def build(source: str = None, stem: str = "libjpeg_decode", what: str = "JPEG decoder") -> str:
+    """Compile a library (the JPEG one by default) if it is not current;
+    its path.  Every failure raises ``RuntimeError``: a missing source or
+    compiler is not the missing dataset that a ``FileNotFoundError`` would
+    announce."""
+    source = SOURCE if source is None else source
     try:
-        out = library_path()
+        out = library_path(source, stem)
         if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-            proc = subprocess.run(["g++", *FLAGS, SOURCE, "-o", tmp],
+            proc = subprocess.run(["g++", *FLAGS, source, "-o", tmp],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed to build the JPEG decoder:\n{proc.stderr}")
+                raise RuntimeError(f"g++ failed to build the {what}:\n{proc.stderr}")
             os.replace(tmp, out)
     except OSError as e:
-        raise RuntimeError(f"cannot build the JPEG decoder from {SOURCE}: {e}") from e
+        raise RuntimeError(f"cannot build the {what} from {source}: {e}") from e
     return out
 
 
+def _load(source: str, stem: str, what: str) -> ctypes.CDLL:
+    path = build(source, stem, what)
+    try:
+        return ctypes.CDLL(path)
+    except OSError as e:
+        raise RuntimeError(f"cannot load the {what} {path}: {e}") from e
+
+
 def library() -> ctypes.CDLL:
-    """The loaded decoder, built first if needed."""
+    """The loaded JPEG decoder and resize, built first if needed."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            path = build()
-            try:
-                lib = ctypes.CDLL(path)
-            except OSError as e:
-                raise RuntimeError(f"cannot load the JPEG decoder {path}: {e}") from e
+            lib = _load(SOURCE, "libjpeg_decode", "JPEG decoder")
             for name in ("smm_jpeg_size", "smm_jpeg_decode", "smm_resize_pil"):
                 getattr(lib, name).restype = ctypes.c_int
             lib.smm_jpeg_size.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
@@ -85,6 +98,22 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
+def webp_library() -> ctypes.CDLL:
+    """The loaded webp decoder, built first if needed."""
+    global _WEBP_LIB
+    with _LOCK:
+        if _WEBP_LIB is None:
+            lib = _load(WEBP_SOURCE, "libwebp_decode", "webp decoder")
+            for name in ("smm_webp_size", "smm_webp_decode"):
+                getattr(lib, name).restype = ctypes.c_int
+            lib.smm_webp_size.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                          ctypes.c_char_p, ctypes.c_int]
+            lib.smm_webp_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+            _WEBP_LIB = lib
+        return _WEBP_LIB
+
+
 def _raise(code: int, err) -> None:
     msg = err.value.decode(errors="replace")
     if code == 1:
@@ -92,22 +121,42 @@ def _raise(code: int, err) -> None:
     raise ValueError(f"corrupt JPEG: {msg}")
 
 
+def _decode(size_fn, decode_fn, data: bytes, fail) -> np.ndarray:
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    wh = np.zeros(2, np.int32)
+    code = size_fn(data, len(data), wh.ctypes.data, err, _ERRLEN)
+    if code:
+        fail(code, err)
+    out = np.empty((int(wh[1]), int(wh[0]), 3), np.uint8)
+    code = decode_fn(data, len(data), out.ctypes.data, out.nbytes, err, _ERRLEN)
+    if code:
+        fail(code, err)
+    return out
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> (H, W, 3) uint8 RGB, equal to PIL's
     ``Image.open(...).convert("RGB")``.  Layouts the decoder does not read
     raise ``NotImplementedError``; corrupt data ``ValueError``."""
     lib = library()
-    data = bytes(data)
-    err = ctypes.create_string_buffer(_ERRLEN)
-    wh = np.zeros(2, np.int32)
-    code = lib.smm_jpeg_size(data, len(data), wh.ctypes.data, err, _ERRLEN)
-    if code:
-        _raise(code, err)
-    out = np.empty((int(wh[1]), int(wh[0]), 3), np.uint8)
-    code = lib.smm_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, err, _ERRLEN)
-    if code:
-        _raise(code, err)
-    return out
+    return _decode(lib.smm_jpeg_size, lib.smm_jpeg_decode, data, _raise)
+
+
+def _raise_webp(code: int, err) -> None:
+    msg = err.value.decode(errors="replace")
+    if code == 1:
+        raise NotImplementedError(f"{msg}: the port decodes still webp images "
+                                  f"(ROADMAP: animated webp)")
+    raise ValueError(f"corrupt webp: {msg}")
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """webp bytes (lossy or lossless, simple or extended) -> (H, W, 3)
+    uint8 RGB, equal to PIL's ``Image.open(...).convert("RGB")``.  An
+    animation raises ``NotImplementedError``; corrupt data ``ValueError``."""
+    lib = webp_library()
+    return _decode(lib.smm_webp_size, lib.smm_webp_decode, data, _raise_webp)
 
 
 def resize_pil(u8: np.ndarray, size, xcoeffs, ycoeffs) -> np.ndarray:

@@ -7,7 +7,7 @@ The loaders read CIFAR-10 pickles, ImageNet-64 npz shards and TFRecord
 shards, MNIST idx files, decode-once packed uint8 caches, LSUN LMDB
 environments and CelebA-layout JPEG/PNG directories, in the JAX package's
 order.  Images are decoded without PIL (``data/image.py``: the native JPEG
-decoder and PIL's bilinear resize, both byte-identical to PIL's).  Without
+and webp decoders and PIL's bilinear resize, all byte-identical to PIL's).  Without
 an asset the procedural ``SyntheticImages`` source with the same shapes
 stands in, with a printed note, as in the JAX package; an asset that is
 present but cannot be read raises.  ``gaussian_mix`` is the 1-D toy
@@ -130,11 +130,12 @@ def _load_npz_images(data_dir: str, subdir: str, size: int) -> Optional[Array]:
 
 
 def _decoder_pool(threads: int) -> DecodePool:
-    """A decode pool, with the native decoder built (or raising) first:
+    """A decode pool, with the native decoders built (or raising) first:
     before any batch, a source that decodes has no other decoder to fall
     back to."""
-    from smmdax_torch.data.native import library
+    from smmdax_torch.data.native import library, webp_library
     library()
+    webp_library()
     return DecodePool(threads)
 
 
@@ -192,10 +193,9 @@ class LSUNSource:
 
     Reads the LMDB B+tree directly (``data/lmdb_store.py``); random access
     over the key index keeps batches a pure function of (seed, step).  The
-    drawn records are decoded in a pool of ``decode_threads``.  JPEG and
-    PNG values are read; the official LSUN LMDBs hold webp values, which
-    raise (ROADMAP: a webp decoder): pack those once with the JAX
-    package's converter on a host with PIL and train from the cache.
+    drawn records are decoded in a pool of ``decode_threads``.  webp
+    values (the official LSUN LMDBs' encoding, lossy or lossless), JPEG
+    and PNG are read, each to PIL's bytes.
     """
 
     def __init__(self, lmdb_path: str, output_size: int = 64, seed: int = 0,

@@ -1,13 +1,16 @@
-"""A minimal protobuf wire-format reader, written from the public protobuf
-encoding spec: the port's frozen TF graph reader (``eval/tf_graph.py``) and
-its TFRecord reader (``data/tfrecord.py``, ``tf.train.Example``) parse
-their messages with it, without TensorFlow.
+"""A minimal protobuf wire-format reader and writer, written from the public
+protobuf encoding spec: the port's frozen TF graph reader
+(``eval/tf_graph.py``) and its TFRecord reader (``data/tfrecord.py``,
+``tf.train.Example``) parse their messages with it, and its TensorBoard
+writer (``tfevents.py``) encodes its ``Event`` records, without
+TensorFlow.
 
 Wire types: 0 varint, 1 fixed64, 2 length-delimited, 5 fixed32.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import List, Tuple
 
 
@@ -64,3 +67,33 @@ def packed_varints(val, wt) -> List[int]:
 def signed(v: int) -> int:
     """Plain (non-zigzag) int64 varints store negatives as 2^64 - |x|."""
     return v - (1 << 64) if v >= (1 << 63) else v
+
+
+# ---------------------------------------------------------------------------
+# Encoders, the inverse of the readers above (TensorBoard's ``Event``
+# records, ``tfevents.py``).
+
+
+def encode_varint(v: int) -> bytes:
+    """A non-negative integer as a varint."""
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def field_varint(field: int, v: int) -> bytes:
+    return encode_varint(field << 3) + encode_varint(v)
+
+
+def field_bytes(field: int, data: bytes) -> bytes:
+    return encode_varint(field << 3 | 2) + encode_varint(len(data)) + data
+
+
+def field_double(field: int, x: float) -> bytes:
+    return encode_varint(field << 3 | 1) + struct.pack("<d", x)

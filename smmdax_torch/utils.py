@@ -5,7 +5,8 @@ The machine with the card has neither PIL nor TensorFlow, so PNGs are
 written with the standard library (``zlib`` + ``struct``: 8-bit grey or
 RGB, no interlace) and read the same way (8-bit grey, RGB or RGBA, no
 interlace, every row filter; ``decode_png`` takes the bytes), and
-``MetricWriter(tensorboard=True)`` raises instead of writing event files.
+``MetricWriter(tensorboard=True)`` writes TF2's event files with the
+standard library (``tfevents.py``).
 """
 
 from __future__ import annotations
@@ -151,25 +152,26 @@ def save_images(images: Array, path: str, nrow: Optional[int] = None) -> None:
 
 
 class MetricWriter:
-    """Metrics as JSONL on disk, and as stdout lines.  Over several ranks
-    only rank 0's writer writes (the metrics are global); the others
-    write nothing and create no file."""
+    """Metrics as JSONL on disk, and as stdout lines; with ``tensorboard``
+    also as TensorBoard event files under ``log_dir/tb/run_name``, flushed
+    after every write, as the JAX package's ``tf.summary`` writer.  Over
+    several ranks only rank 0's writer writes (the metrics are global); the
+    others write nothing and create no file."""
 
     def __init__(self, log_dir: str, run_name: str, also_stdout: bool = True,
                  tensorboard: bool = False, rank: int = 0):
-        if tensorboard:
-            raise NotImplementedError(
-                "tensorboard=True: the port has no TensorBoard writer yet (it "
-                "needs one without TensorFlow, ROADMAP: a TensorBoard writer); the JSONL log "
-                "under log_dir holds every metric")
         self.enabled = rank == 0
         self.also_stdout = also_stdout
         self.path = os.path.join(log_dir, f"{run_name}.jsonl")
         self._fh = None
+        self._tb = None
         if not self.enabled:
             return
         os.makedirs(log_dir, exist_ok=True)
         self._fh = open(self.path, "a", buffering=1)
+        if tensorboard:
+            from smmdax_torch.tfevents import EventFileWriter
+            self._tb = EventFileWriter(os.path.join(log_dir, "tb", run_name))
 
     def write(self, step: int, metrics: Dict[str, float]) -> None:
         if not self.enabled:
@@ -182,10 +184,15 @@ class MetricWriter:
                 f"{k}={v}" if isinstance(v, int) else f"{k}={v:.5g}"
                 for k, v in rec.items() if k not in ("time",))
             print(f"[smmdax_torch] {body}", flush=True)
+        if self._tb is not None:
+            self._tb.scalars(step, metrics)
+            self._tb.flush()
 
     def close(self) -> None:
         if self._fh is not None:
             self._fh.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class StepTimer:

@@ -5,9 +5,8 @@ witness function.
 ``witness_fn`` is numeric and equals the JAX package's.  ``plot_toy_frame``
 keeps its contract: matplotlib is imported inside it, and without
 matplotlib it draws nothing and returns None.  ``assemble_toy_animation``
-returns None: the JAX package writes the GIF with PIL, which the port
-does not use, and a GIF writer without it is not ported yet (ROADMAP: a
-GIF writer without PIL).
+stitches the frames into a GIF as the JAX package does with PIL, with the
+port's own writer (``gif.py``: an adaptive palette per frame, LZW).
 """
 
 from __future__ import annotations
@@ -75,7 +74,17 @@ def plot_toy_frame(cfg: Config, critic: Critic, real, fake, step: int, out_dir: 
 
 
 def assemble_toy_animation(out_dir: str, duration_ms: int = 200) -> Optional[str]:
-    """The path of ``out_dir/toy_animation.gif`` stitched from the toy
-    frames, as the JAX package writes it with PIL; always None here (no
-    GIF writer without PIL yet).  The frames stay in ``out_dir``."""
-    return None
+    """Stitch the ``toy_*.png`` frames of ``out_dir``, in name order, into
+    ``out_dir/toy_animation.gif`` (``duration_ms`` per frame, looping) and
+    return its path; None when fewer than two frames exist.  The frames
+    stay in ``out_dir``."""
+    from smmdax_torch.gif import write_gif
+    from smmdax_torch.utils import read_png
+    if not os.path.isdir(out_dir):
+        return None
+    names = sorted(f for f in os.listdir(out_dir) if f.startswith("toy_") and f.endswith(".png"))
+    if len(names) < 2:
+        return None
+    path = os.path.join(out_dir, "toy_animation.gif")
+    write_gif(path, [read_png(os.path.join(out_dir, f)) for f in names], duration_ms)
+    return path

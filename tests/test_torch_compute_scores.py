@@ -165,9 +165,9 @@ def test_mixed_size_jpeg_directory_reads_as_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("case", ["jpeg", "mixed sizes"])
 def test_unreadable_directories_raise(tmp_path, case):
-    """JPEG files and mixed sizes are read now (above); what still raises
-    is an image the port cannot decode: a progressive JPEG, and in a set of
-    mixed sizes a webp file named .jpg, each naming its ROADMAP item."""
+    """What still raises is an image the port cannot decode: a progressive
+    JPEG, naming its ROADMAP item.  A webp file named .jpg in a set of
+    mixed sizes is read now, as the JAX package reads it with PIL."""
     import io
     Image = pytest.importorskip("PIL.Image")
     from smmdax_torch.utils import write_png
@@ -175,15 +175,16 @@ def test_unreadable_directories_raise(tmp_path, case):
     if case == "jpeg":
         (tmp_path / "b.jpg").write_bytes(_jpeg_bytes(np.zeros((4, 4, 3), np.uint8),
                                                      progressive=True))
-        item = "progressive JPEG"
-    else:
-        write_png(str(tmp_path / "b.png"), np.zeros((5, 4, 3), np.uint8))
-        buf = io.BytesIO()
-        Image.fromarray(np.zeros((6, 4, 3), np.uint8)).save(buf, format="WEBP")
-        (tmp_path / "c.jpg").write_bytes(buf.getvalue())
-        item = "a webp decoder"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
-        tcs._load(str(tmp_path))
+        with pytest.raises(NotImplementedError, match="ROADMAP: progressive JPEG"):
+            tcs._load(str(tmp_path))
+        return
+    write_png(str(tmp_path / "b.png"), np.zeros((5, 4, 3), np.uint8))
+    buf = io.BytesIO()
+    arr = np.random.default_rng(2).integers(0, 256, (6, 4, 3), dtype=np.uint8)
+    Image.fromarray(arr).save(buf, format="WEBP")
+    (tmp_path / "c.jpg").write_bytes(buf.getvalue())
+    got, want = tcs._load(str(tmp_path)), jcs._load(str(tmp_path))
+    assert got.shape == (3, 4, 4, 3) and got.tobytes() == want.tobytes()
 
 
 def test_empty_directory_raises(tmp_path):

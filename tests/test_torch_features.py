@@ -9,6 +9,7 @@ another order).  The odd size pads 1 / 1, the even one 0 / 1.
 """
 
 import json
+import os
 import struct
 import zlib
 
@@ -148,5 +149,10 @@ def test_metric_writer(tmp_path, capsys):
     rec = json.loads(open(w.path).read())
     assert rec["step"] == 113000 and rec["kid"] == 0.5
     assert "step=113000 kid=0.5" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="TensorBoard"):
-        tutils.MetricWriter(str(tmp_path), "run", tensorboard=True)
+    from smmdax_torch.tfevents import read_events
+    tb = tutils.MetricWriter(str(tmp_path), "tbrun", tensorboard=True)
+    tb.write(7, {"kid": 0.5})
+    (events,) = os.listdir(tmp_path / "tb" / "tbrun")
+    assert [e["values"] for e in read_events(str(tmp_path / "tb" / "tbrun" / events))] == \
+        [[], [("kid", 0.5)]]
+    tb.close()

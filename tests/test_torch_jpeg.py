@@ -3,8 +3,9 @@
 byte for byte: the committed fixtures (``tests/fixtures/port_images``, whose
 manifest of PIL's hashes is regenerated here), a seeded sweep of sizes,
 qualities, subsamplings and restart intervals, native against plain on
-small images; unsupported layouts and webp raise; a decoder that cannot
-be built raises in ``make_dataset`` and is never replaced."""
+small images; unsupported layouts, unknown formats and animated webp
+raise; a decoder that cannot be built raises in ``make_dataset`` and is
+never replaced."""
 
 import hashlib
 import io
@@ -157,12 +158,19 @@ def test_corrupt_data_decodes_or_raises():
 
 
 def test_webp_and_unknown_formats_raise():
+    """webp decodes now (to PIL's bytes); unknown formats and animated webp
+    still raise, as does a corrupt JPEG."""
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="WEBP")
-    with pytest.raises(NotImplementedError, match="ROADMAP: a webp decoder"):
-        timage.decode_image(buf.getvalue())
-    with pytest.raises(NotImplementedError, match="decodes JPEG and PNG"):
+    arr = np.random.default_rng(5).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    Image.fromarray(arr).save(buf, format="WEBP")
+    np.testing.assert_array_equal(timage.decode_image(buf.getvalue()), _pil(buf.getvalue()))
+    with pytest.raises(NotImplementedError, match="decodes JPEG, PNG and webp"):
         timage.decode_image(b"GIF89a\x01\x00")
+    anim = io.BytesIO()
+    frames = [Image.fromarray(arr), Image.fromarray(255 - arr)]
+    frames[0].save(anim, format="WEBP", save_all=True, append_images=frames[1:], duration=50)
+    with pytest.raises(NotImplementedError, match="ROADMAP: animated webp"):
+        timage.decode_image(anim.getvalue())
     with pytest.raises(ValueError, match="corrupt JPEG"):
         native.decode_jpeg(b"\xff\xd8\xff")
 

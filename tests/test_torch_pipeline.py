@@ -75,7 +75,7 @@ def test_mnist_and_substitution(tmp_path, capsys):
 
 
 # what each unreadable asset raises: not an image, a 1-byte LMDB, no records
-_ERRORS = {"celeba": (NotImplementedError, "decodes JPEG and PNG"),
+_ERRORS = {"celeba": (NotImplementedError, "decodes JPEG, PNG and webp"),
            "lsun": (struct.error, None), "imagenet64": (ValueError, "no records found")}
 
 

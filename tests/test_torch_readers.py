@@ -114,12 +114,16 @@ def test_lsun_lmdb_batches_equal_jax(tmp_path, capsys):
 
 
 def test_lsun_webp_record_raises(tmp_path):
+    """A webp record (the official LSUN encoding) no longer raises: it
+    gives JAX's batch, byte for byte."""
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, format="WEBP")
+    arr = np.random.default_rng(4).integers(0, 256, (16, 20, 3), dtype=np.uint8)
+    Image.fromarray(arr).save(buf, format="WEBP")
     tlmdb.write_lmdb(str(tmp_path / "lsun"), [(b"k", buf.getvalue())])
-    src = tpipe.make_dataset(Config(dataset="lsun", data_dir=str(tmp_path), output_size=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP: a webp decoder"):
-        src.batch_u8(2, key=0)
+    kw = dict(dataset="lsun", data_dir=str(tmp_path), output_size=16)
+    src = tpipe.make_dataset(Config(**kw))
+    want = jpipe.make_dataset(JConfig(**kw)).batch_u8(2, key=0)
+    assert src.batch_u8(2, key=0).tobytes() == want.tobytes()
 
 
 # ---------------------------------------------------------------------------

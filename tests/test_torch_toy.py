@@ -125,7 +125,8 @@ def test_witness_fn_matches_jax(pair, kernel):
 def test_toy_run_feeds_float32_batches(tmp_path):
     """A toy Trainer on the CPU: with uint8_transfer on (the default) each
     dispatch gets the GaussianMix macro-batch itself, float32; the samples
-    are frames (matplotlib here) and no animation."""
+    are frames (matplotlib here), and the end of the run stitches them into
+    the animation."""
     cfg = Config(**TOY, batch_size=32, real_batch_size=32, dsteps=2, start_dsteps=2,
                  max_iteration=4, steps_per_dispatch=2, log_every=2, sample_every=2,
                  checkpoint_every=0, MMD_lr_scheduler=False,
@@ -152,8 +153,11 @@ def test_toy_run_feeds_float32_batches(tmp_path):
         want = np.stack([macro_batch_at(t.source, s + i, 3, 32) for i in range(2)])
         assert batch.tobytes() == want.tobytes()
     out = tmp_path / "s" / cfg.run_name()
-    assert sorted(os.listdir(out)) == ["toy_0000002.png", "toy_0000004.png"]
-    assert assemble_toy_animation(str(out)) is None
+    assert sorted(os.listdir(out)) == ["toy_0000002.png", "toy_0000004.png", "toy_animation.gif"]
+    gif = (out / "toy_animation.gif").read_bytes()
+    assert gif.startswith(b"GIF89a") and b"NETSCAPE2.0" in gif
+    assert assemble_toy_animation(str(out)) == str(out / "toy_animation.gif")
+    assert (out / "toy_animation.gif").read_bytes() == gif
 
 
 def _frame_inputs():
