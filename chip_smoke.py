@@ -6,11 +6,13 @@
     python3 chip_smoke.py --only ranks
     python3 chip_smoke.py --only inception
     python3 chip_smoke.py --only formats
+    python3 chip_smoke.py --only dryrun
 
 (The second form profiles the bf16 steps of phases 3 and 4 of the
 ``smmdax_torch`` in DIR, e.g. an earlier commit unpacked by ``git
 archive``, to compare its kernels' device time with this tree's.  The
-third runs phase 9 alone, the fourth phase 10, the fifth phase 11.)
+third runs phase 9 alone, the fourth phase 10, the fifth phase 11, the
+sixth phase 12.)
 
 Phases, each fatal on failure:
 
@@ -155,7 +157,23 @@ Phases, each fatal on failure:
    macro-step and the launches of kernels 1-2; its event files read back
    with ``tfevents.read_events`` (both CRCs) equal to the JSONL rows; and
    the toy's GIF from the committed frames (``tests/fixtures/port_gif``)
-   equal to the SHA-256 in their manifest.
+   equal to the SHA-256 in their manifest;
+12. the entry point and the multichip dry run (``smmdax_torch.graft_entry``):
+   (a) ``entry()`` at the flagship's full width on cuda:0 in float32, the
+   example arguments' (loss, mmd2, sigma) finite, on seeded inputs the
+   fused arm against the dense one at VALUE_RTOL / VALUE_ATOL, ms per
+   forward (median of 20 after warm-up, each synchronized) and the
+   kernels' launches in one forward; (b) ``dryrun_multichip(1, "cuda")``,
+   13/13 modes, the seconds of each, and its three core modes' metrics
+   against the same modes on the dense arm (``use_pallas="off"``) at
+   VALUE_RTOL / VALUE_ATOL; (c) the same on two ranks: with two or more
+   cards the port's own launcher, ``dryrun_multichip(2, "cuda")`` (NCCL,
+   one rank per card), each mode counting its rank's launches; with one
+   card both ranks on cuda:0 through phase 9's staged axis, the modes run
+   on the caller's axis; each of the four kernels launched in (b) and in
+   each rank of (c).  (b), and (c)'s launcher with two cards, run in this
+   process, so the dry run's SIGTERM / SIGINT / SIGALRM handler is this
+   process's while they run.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -3200,6 +3218,201 @@ def run_formats(tmp: str, results: dict, tree: str) -> tuple:
     return launches, lsun64
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the entry point and the multichip dry run
+
+
+ENTRY_TIMED = 20          # forwards timed after warm-up: their median
+
+
+def check_entry(results: dict) -> dict:
+    """(a) ``graft_entry.entry()`` at full width on cuda:0 in float32: the
+    example arguments' (loss, mmd2, sigma) finite; on seeded inputs the
+    fused arm against the dense one (``use_pallas="off"``) at VALUE_RTOL /
+    VALUE_ATOL; ms per forward (median of ENTRY_TIMED, each synchronized);
+    the kernels' launches in one forward.  Returns those launches."""
+    import numpy as np
+    import torch
+    from smmdax_torch import graft_entry
+    from smmdax_torch.train import create_state
+    fn, args = graft_entry.entry("cuda")
+    cfg = graft_entry.flagship_cfg()
+    dense_state = create_state(cfg.replace(use_pallas="off"), 0, "cuda")
+    dense = graft_entry.forward_fn(cfg.replace(use_pallas="off"), dense_state.gen,
+                                   dense_state.disc)
+    r = np.random.default_rng(3)
+    real = torch.from_numpy((r.standard_normal(tuple(args[4].shape)) * 0.5)
+                            .astype(np.float32)).cuda()
+    z = torch.from_numpy(r.uniform(-1.0, 1.0, tuple(args[5].shape)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        zeros = [float(v) for v in fn(*args)]
+        counters = _zero_launches()
+        fused = [float(v) for v in fn(*args[:4], real, z)]
+        launches = {k.__name__: k.launches for k in counters}
+        plain = [float(v) for v in dense(*args[:4], real, z)]
+        times = []
+        for i in range(ENTRY_TIMED + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args[:4], real, z)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(v) for v in zeros + fused + plain):
+        fail(f"entry: non-finite (loss, mmd2, sigma): zeros {zeros}, fused {fused}, "
+             f"dense {plain}")
+    bad = [name for name, f, d in zip(("loss", "mmd2", "sigma"), fused, plain)
+           if abs(f - d) > VALUE_ATOL + VALUE_RTOL * abs(d)]
+    if bad:
+        fail(f"entry: fused {fused} vs dense {plain} off at {bad}")
+    if not launches["pair_sum"]:
+        fail(f"entry: the forward launched no pair sum ({launches})")
+    ms = sorted(times)[len(times) // 2]
+    results["entry"] = dict(zeros=zeros, fused=fused, dense=plain, ms_per_forward=ms,
+                            ms_min=min(times), ms_max=max(times), launches=launches,
+                            card=card_line())
+    log(f"entry (flagship forward, B {cfg.batch_size}, float32): (loss, mmd2, sigma) "
+        f"zeros {zeros}; seeded fused {fused} / dense {plain}; {ms:.2f} ms per forward "
+        f"(median of {ENTRY_TIMED}, {min(times):.2f}-{max(times):.2f}); launches per "
+        f"forward {launches}; {results['entry']['card']}")
+    return launches
+
+
+def _check_dryrun(records: list, launches: dict, label: str, results: dict) -> None:
+    """13/13 modes OK, each of the four kernels launched in the run."""
+    from smmdax_torch import graft_entry
+    names = [name for name, _ in graft_entry._MODES]
+    if [r["name"] for r in records] != names or any(r["status"] != "ok" for r in records):
+        fail(f"dryrun {label}: {[(r['name'], r['status']) for r in records]}")
+    missing = [k for k in KERNEL_PARTS if not launches.get(k)]
+    if missing:
+        fail(f"dryrun {label}: the run did not launch {missing} ({launches})")
+    seconds = {r["name"]: r["seconds"] for r in records}
+    results.setdefault("dryrun", {})[label] = dict(seconds=seconds, launches=launches,
+                                                   total_s=sum(seconds.values()))
+    log(f"dryrun {label}: 13/13 modes OK in {sum(seconds.values()):.2f} s of modes; "
+        + ", ".join(f"{n} {s:.2f} s" for n, s in seconds.items())
+        + f"; launches {launches}")
+
+
+def _rank_dryrun(axis, job, rank) -> dict:
+    """(c) on one card: the dry run's modes on this group's staged axis,
+    the launch counters read around it."""
+    from smmdax_torch import graft_entry
+    counters = _zero_launches()
+    records = graft_entry.dryrun_multichip(axis.size, axis=axis)
+    return dict(records=records, launches={k.__name__: k.launches for k in counters})
+
+
+RANK_PARTS["dryrun"] = _rank_dryrun
+
+
+class _CountedMode:
+    """A dry-run mode that also gathers, from every rank, the kernels'
+    launches the mode made there, into the mode's metrics under
+    ``launches`` (one dict per rank).  Picklable, so the spawned ranks of
+    ``dryrun_multichip`` run it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, ctx) -> str:
+        from smmdax_torch.cuda import mmd_kernel as mk
+        before = {k.__name__: k.launches for k in mk.kernel_launch_counters()}
+        try:
+            return self.fn(ctx)
+        finally:
+            made = {k.__name__: k.launches - before[k.__name__]
+                    for k in mk.kernel_launch_counters()}
+            ctx.metrics.setdefault(ctx.mode, {})["launches"] = ctx.axis.gather_objects(made)
+
+
+def _nccl_dryrun(results: dict) -> list:
+    """(c) with two cards: ``dryrun_multichip(RANKS, "cuda")`` through the
+    port's launcher, each mode counting; each rank's launches summed over
+    the modes."""
+    from smmdax_torch import graft_entry
+    modes = graft_entry._MODES
+    graft_entry._MODES = [(name, _CountedMode(fn)) for name, fn in modes]
+    try:
+        records = graft_entry.dryrun_multichip(RANKS, "cuda")
+    finally:
+        graft_entry._MODES = modes
+    per_rank = []
+    for rank in range(RANKS):
+        per_rank.append({k: sum(r["metrics"]["launches"][rank][k] for r in records)
+                         for k in KERNEL_PARTS})
+        _check_dryrun(records, per_rank[rank], f"{RANKS} ranks (nccl), rank {rank}", results)
+    return per_rank
+
+
+def _dense_core_modes(records: list, results: dict) -> None:
+    """(b)'s three core modes again on one rank with ``use_pallas="off"``:
+    each metric of the fused run against the dense one at VALUE_RTOL /
+    VALUE_ATOL."""
+    from smmdax_torch import graft_entry
+    from smmdax_torch.parallel import init_data_axis
+    axis = init_data_axis("cuda:0")
+    try:
+        ctx = graft_entry.dryrun_context(axis)
+        ctx.cfg = ctx.cfg.replace(use_pallas="off")
+        dense = []
+        graft_entry.run_modes(ctx, graft_entry._MODES[:graft_entry.N_CORE_MODES], math.inf,
+                              time.time(), dense.append)
+    finally:
+        axis.close()
+    worst = {}
+    for fused, plain in zip(records, dense):
+        if plain["status"] != "ok":
+            fail(f"dryrun dense {plain['name']}: {plain['detail']}")
+        got, want = fused["metrics"], plain["metrics"]
+        bad = [k for k in want if abs(got[k] - want[k]) > VALUE_ATOL + VALUE_RTOL * abs(want[k])]
+        if set(got) != set(want) or bad:
+            fail(f"dryrun {fused['name']}: fused {got} vs dense {want} off at {bad}")
+        worst[fused["name"]] = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                                   for k in want)
+    results["dryrun"]["1 rank"]["fused_vs_dense_max_rel"] = worst
+    log(f"dryrun 1 rank: core modes fused = dense at rtol {VALUE_RTOL} / atol {VALUE_ATOL}; "
+        f"largest relative gap {worst}")
+
+
+def run_dryrun(tmp: str, results: dict, tree: str) -> dict:
+    """Phase 12 (see the module docstring).  Returns the kernels' launches
+    in the entry forward, the one-rank dry run and the two-rank one."""
+    import torch
+    from smmdax_torch import graft_entry
+    t_phase = time.perf_counter()
+    entry = check_entry(results)
+    # (b)
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    records = graft_entry.dryrun_multichip(1, "cuda")
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    one = {k.__name__: k.launches for k in counters}
+    _check_dryrun(records, one, "1 rank", results)
+    results["dryrun"]["1 rank"]["wall_s"] = wall1
+    _dense_core_modes(records, results)
+    # (c)
+    transport = "nccl" if torch.cuda.device_count() >= RANKS else "gloo"
+    t0 = time.perf_counter()
+    if transport == "nccl":
+        two = _nccl_dryrun(results)[0]
+    else:
+        ranks = _run_ranks(dict(name="dryrun", tree=tree, out=tmp, parts=["dryrun"]),
+                           transport)
+        for i, r in enumerate(ranks):
+            _check_dryrun(r["dryrun"]["records"], r["dryrun"]["launches"],
+                          f"{RANKS} ranks ({transport}), rank {i}", results)
+        two = ranks[0]["dryrun"]["launches"]
+    wall2 = time.perf_counter() - t0
+    results["dryrun"]["wall_s"] = dict(one_rank=wall1, two_ranks=wall2)
+    results["dryrun"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"dryrun phase: {results['dryrun']['phase_s']:.1f} s (1 rank {wall1:.1f} s, "
+        f"{RANKS} ranks over {transport} {wall2:.1f} s with the ranks' start)")
+    return dict(entry=entry, one_rank=one, two_ranks=two)
+
+
 def profile_only(results: dict) -> int:
     """The timed and profiled bf16 macro-steps of phases 3 and 4 alone."""
     import torch
@@ -3239,14 +3452,16 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", default=HERE,
                         help="import smmdax_torch from this checkout (default: beside "
                              "this script), e.g. an earlier commit unpacked by git archive")
-    parser.add_argument("--only", choices=("profile", "ranks", "inception", "formats"),
+    parser.add_argument("--only", choices=("profile", "ranks", "inception", "formats",
+                                           "dryrun"),
                         default=None,
                         help="profile: build, then only the timed and profiled bf16 "
                              "steps of phases 3 and 4; prints the launches and device "
                              "us per launch of each csrc kernel, and no ok line; "
                              "ranks: build, then phase 9 alone, and no ok line; "
                              "inception: build, then phase 10 alone, and no ok line; "
-                             "formats: build, then phase 11 alone, and no ok line")
+                             "formats: build, then phase 11 alone, and no ok line; "
+                             "dryrun: build, then phase 12 alone, and no ok line")
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
     # cuBLAS reads it when CUDA starts: phase 5 runs deterministic
@@ -3281,8 +3496,9 @@ def main(argv=None) -> int:
     results["build_s"] = secs
     if args.only == "profile":
         return profile_only(results)
-    if args.only in ("ranks", "inception", "formats"):
-        phase = {"ranks": run_ranks, "inception": run_inception, "formats": run_formats}
+    if args.only in ("ranks", "inception", "formats", "dryrun"):
+        phase = {"ranks": run_ranks, "inception": run_inception, "formats": run_formats,
+                 "dryrun": run_dryrun}
         with tempfile.TemporaryDirectory() as tmp:
             phase[args.only](tmp, results, tree)
         write_results(args.out, results)
@@ -3373,6 +3589,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         formats, lsun64 = run_formats(tmp, results, tree)
 
+    # phase 12
+    with tempfile.TemporaryDirectory() as tmp:
+        dryrun = run_dryrun(tmp, results, tree)
+
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
 
@@ -3430,6 +3650,11 @@ def main(argv=None) -> int:
         # the lsun64 run host-fed from the webp LMDB
         kern["celeba160_launches"] = formats[counter]
         kern["lsun64_launches"] = lsun64[counter]
+        # phase 12: one entry forward (seeded inputs), and the dry run's 13
+        # modes on one rank and on rank 0 of two
+        kern["entry_launches_per_forward"] = dryrun["entry"][counter]
+        kern["dryrun_launches"] = {"one_rank": dryrun["one_rank"][counter],
+                                   "two_ranks_rank0": dryrun["two_ranks"][counter]}
     card = card_line()
     results.update(kernels=kernels, card=card)
     write_results(args.out, results)

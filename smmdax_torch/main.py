@@ -19,22 +19,15 @@ every rank (each checkpoints at the same step and stops).
 
 from __future__ import annotations
 
-import multiprocessing
 import os
-import shutil
 import signal
 import sys
-import tempfile
-import time
-import traceback
 from typing import List
 
 import numpy as np
 import torch
 
 from smmdax_torch.configs import Config, build_argparser, config_from_namespace
-
-POLL_S = 0.2
 
 
 def main(argv=None) -> None:
@@ -131,75 +124,32 @@ def _run_group(cfg: Config, device, world: int) -> List[int]:
     """One start of the group: the ranks' exit codes.  A rank that fails
     (any code but 0 or the restart code) has the others killed, and its
     traceback printed."""
+    from smmdax_torch.parallel.launch import RankFailed, RankGroup
     from smmdax_torch.trainer import RESTART_EXIT_CODE
-    ctx = multiprocessing.get_context("spawn")
-    tmp = tempfile.mkdtemp(prefix="smmdax_torch_ranks_")
-    errs = [os.path.join(tmp, f"rank{r}.err") for r in range(world)]
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, str(device), os.path.join(tmp, "store"), cfg,
-                               errs[r]))
-             for r in range(world)]
+    with RankGroup(_train_rank, world, device, [(cfg,)] * world) as group:
+        def forward(signum, frame):
+            group.signal(signum)
 
-    def forward(signum, frame):
-        for p in procs:
-            if p.pid is not None and p.exitcode is None:
-                os.kill(p.pid, signum)
-
-    try:
-        old = [signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)]
-    except ValueError:           # not the main thread
-        old = None
-    try:
-        for p in procs:
-            p.start()
-        failed = None
-        while failed is None and any(p.exitcode is None for p in procs):
-            time.sleep(POLL_S)
-            failed = next((r for r, p in enumerate(procs)
-                           if p.exitcode not in (None, 0, RESTART_EXIT_CODE)), None)
-        if failed is not None:
-            for p in procs:
-                if p.exitcode is None:
-                    p.kill()
-            msg = f"exit code {procs[failed].exitcode}\n"
-            if os.path.exists(errs[failed]):
-                with open(errs[failed]) as f:
-                    msg = f.read()
-            print(f"[smmdax_torch] rank {failed} of {world} failed; the others were "
-                  f"stopped:\n{msg}", file=sys.stderr, flush=True)
-        for p in procs:
-            p.join()
-        return [p.exitcode for p in procs]
-    finally:
-        for p in procs:
-            if p.pid is not None and p.exitcode is None:
-                p.kill()
-                p.join()
-        if old is not None:
-            signal.signal(signal.SIGTERM, old[0])
-            signal.signal(signal.SIGINT, old[1])
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
-def _rank_main(rank: int, world: int, device: str, store: str, cfg: Config,
-               err_path: str) -> None:
-    """One rank: join the group on its device, train, leave the group."""
-    from smmdax_torch.parallel.collectives import init_data_axis, rank_device
-    from smmdax_torch.trainer import Trainer
-    try:
-        dev = rank_device(device, rank)
-        if dev.type == "cpu":
-            # the ranks share the host's cores
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-        axis = init_data_axis(dev, rank, world, store)
         try:
-            Trainer(cfg, device=dev, axis=axis).train()
+            old = [signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)]
+        except ValueError:           # not the main thread
+            old = None
+        try:
+            group.start()
+            return group.wait(ok_codes=(0, RESTART_EXIT_CODE))
+        except RankFailed as e:
+            print(f"[smmdax_torch] {e}", file=sys.stderr, flush=True)
+            return e.codes
         finally:
-            axis.close()
-    except Exception:
-        with open(err_path, "w") as f:
-            f.write(traceback.format_exc())
-        raise SystemExit(1)
+            if old is not None:
+                signal.signal(signal.SIGTERM, old[0])
+                signal.signal(signal.SIGINT, old[1])
+
+
+def _train_rank(axis, cfg: Config) -> None:
+    """One rank: train on its axis."""
+    from smmdax_torch.trainer import Trainer
+    Trainer(cfg, device=axis.device, axis=axis).train()
 
 
 if __name__ == "__main__":

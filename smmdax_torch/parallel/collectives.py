@@ -30,6 +30,7 @@ card's stream.  The transport of each collective is a method of
 
 from __future__ import annotations
 
+import datetime
 from typing import Any, List, Optional
 
 import torch
@@ -163,14 +164,17 @@ def rank_device(device, rank: int) -> torch.device:
 
 
 def init_data_axis(device, rank: int = 0, world_size: int = 1,
-                   store_path: Optional[str] = None) -> DataAxis:
+                   store_path: Optional[str] = None,
+                   timeout: Optional[float] = None) -> DataAxis:
     """Join the default process group as ``rank`` of ``world_size`` and
     return its ``DataAxis`` on ``device``.
 
     ``store_path``: a file every rank of the group names (``FileStore``);
     None only for one rank (``HashStore``).  NCCL for a CUDA device, gloo
-    for the CPU."""
+    for the CPU.  ``timeout``: seconds a collective may wait for the other
+    ranks before it raises (PyTorch's default when None)."""
     device = torch.device(device)
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     if store_path is None:
         if world_size != 1:
             raise ValueError(f"{world_size} ranks need a FileStore path")
@@ -182,10 +186,10 @@ def init_data_axis(device, rank: int = 0, world_size: int = 1,
             raise ValueError("name the CUDA device of this rank, e.g. cuda:0")
         torch.cuda.set_device(device)
         dist.init_process_group("nccl", store=store, rank=rank,
-                                world_size=world_size, device_id=device)
+                                world_size=world_size, device_id=device, **kw)
     elif device.type == "cpu":
         dist.init_process_group("gloo", store=store, rank=rank,
-                                world_size=world_size)
+                                world_size=world_size, **kw)
     else:
         raise ValueError(f"no collectives for {device} tensors")
     return DataAxis(device)

@@ -68,6 +68,14 @@ from smmdax_torch.viz import assemble_toy_animation, plot_toy_frame
 RESTART_EXIT_CODE = 75
 
 
+def split_rows(m: int, unit: int, rank: int, ranks: int) -> Tuple[int, int]:
+    """Rank ``rank``'s contiguous rows [lo, hi) of ``m``, of ``ranks``, in
+    whole ``unit``s (so the generator's batches and the extractor's
+    batches are those of one device)."""
+    units = -(-m // unit)
+    return min(rank * units // ranks * unit, m), min((rank + 1) * units // ranks * unit, m)
+
+
 def _chunk_seed(seed: int, ci: int) -> int:
     """The generator seed of scoring chunk ``ci``: a fixed function of
     (seed, ci), the counterpart of JAX's ``fold_in(rng, ci)``."""
@@ -210,13 +218,10 @@ class Trainer:
         return int(getattr(self._extractor, "batch", 1))
 
     def _rank_rows(self, m: int, unit: int) -> Optional[Tuple[int, int]]:
-        """This rank's contiguous rows of ``m`` in whole ``unit``s (so the
-        generator's batches and the extractor's batches are those of one
-        device), None on one rank."""
+        """This rank's rows of ``m`` (``split_rows``), None on one rank."""
         if self.axis is None:
             return None
-        units, n, r = -(-m // unit), self.axis.size, self.rank
-        return min(r * units // n * unit, m), min((r + 1) * units // n * unit, m)
+        return split_rows(m, unit, self.rank, self.axis.size)
 
     def _extract(self, images, with_probs: bool = False):
         """Features (and probs) of ``images``, this rank's rows of a set,

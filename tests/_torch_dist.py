@@ -324,5 +324,19 @@ def trainer_suite(axis, payload):
     return out
 
 
+def dryrun_suite(axis, payload):
+    """``graft_entry.dryrun_multichip`` on this group's axis (the caller's
+    ``DataAxis`` path), with the given weights and draws for the modes
+    ``payload["inputs"]`` names: every mode's outcome, and what the rank
+    printed."""
+    import contextlib
+    import io
+    from smmdax_torch import graft_entry
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        records = graft_entry.dryrun_multichip(axis.size, axis=axis, inputs=payload["inputs"])
+    return dict(records=records, printed=out.getvalue())
+
+
 TASKS = {"ring_suite": ring_suite, "dp_suite": dp_suite, "gspmd_suite": gspmd_suite,
-         "trainer_suite": trainer_suite}
+         "trainer_suite": trainer_suite, "dryrun_suite": dryrun_suite}

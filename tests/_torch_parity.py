@@ -136,5 +136,24 @@ def jax_draws(jcfg, key, dsteps, gsteps):
     return {k: np.stack([np.asarray(a) for a in v]) for k, v in out.items() if v}
 
 
+def dp_draws(jcfg, key, dsteps, gsteps, n):
+    """Each rank's draws of JAX's shard_map macro-step: the update keys
+    of train.py:286, folded with the rank (train.py:173-177), split into
+    the latent key (train.py:189-191, 214-217).  The configs this serves
+    use no other draw: no penalty, and no probe (the exact sigma, or no
+    scaling)."""
+    assert jcfg.gradient_penalty == 0 and not (
+        jcfg.with_scaling and jcfg.scaling_grad_estimator == "hutchinson")
+    _, *step_rngs = jax.random.split(key, 1 + dsteps + gsteps)
+    shape = (jcfg.batch_size // n, jcfg.z_dim)
+
+    def z(r, i):
+        rng_z, _ = jax.random.split(jax.random.fold_in(r, i))
+        return np.asarray(jax.random.uniform(rng_z, shape, minval=-1.0, maxval=1.0))
+
+    return [{"d_z": np.stack([z(r, i) for r in step_rngs[:dsteps]]),
+             "g_z": np.stack([z(r, i) for r in step_rngs[dsteps:]])} for i in range(n)]
+
+
 def rng(seed: int = 0) -> np.random.Generator:
     return np.random.default_rng(seed)

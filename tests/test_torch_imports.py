@@ -1,7 +1,8 @@
 """Rules of the port, checked statically: ``smmdax_torch`` (its
 ``parallel`` and ``eval`` packages with Inception and the TF-graph reader,
-the DCGAN and MLP networks, ``viz``, trainer, checkpoint, the CLIs and the
-export, and the data layer's readers, JPEG decoders and packing tool
+the DCGAN and MLP networks, ``viz``, trainer, checkpoint, the CLIs, the
+export and the entry point with its dry run (``graft_entry``), and the
+data layer's readers, JPEG decoders and packing tool
 included),
 ``chip_smoke.py`` and the spawned ranks' helper ``tests/_torch_dist.py``
 import nothing of JAX or of the JAX package, nor PIL or TensorFlow, which
@@ -23,11 +24,11 @@ def _port_files():
     files = sorted((ROOT / "smmdax_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"]
     assert len(files) > 10
-    assert {"collectives.py", "ring.py"} <= {
+    assert {"collectives.py", "ring.py", "launch.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
     assert {"trainer.py", "checkpoint.py", "main.py", "utils.py", "features.py",
             "scores.py", "viz.py", "inception.py", "tf_graph.py", "compute_scores.py",
-            "export.py"} <= {f.name for f in files}
+            "export.py", "graft_entry.py"} <= {f.name for f in files}
     assert {"dcgan.py", "mlp.py", "resnet.py"} <= {
         f.name for f in files if f.parent.name == "nn"}
     assert {"pipeline.py", "image.py", "jpeg.py", "native.py", "lmdb_store.py", "tfrecord.py",

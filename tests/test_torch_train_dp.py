@@ -5,6 +5,10 @@ against the JAX package's ``shard_map`` mode.
 * the tmmd (and smmd) critic loss and its critic gradient under the ring
   and the gathered path on 2 gloo ranks equal the global loss (the port of
   tests/test_shardmap_mode.py:30-52, 151-192);
+* ``global_batch_mmd=False`` (smmd dense, mmd through the fused arm's
+  plain version): each rank's own MMD^2 pmean'd, against JAX's
+  ``critic_loss`` with ``axis_name`` under ``shard_map`` on a 2-device mesh
+  (smmdax/losses.py:141-150), which differs from the global loss;
 * one tiny tmmd macro-step on 2 ranks, ring on, against
   ``jit_train_step(cfg, mesh=make_mesh(2), mode="shard_map")`` from the
   same state, with each rank's noise rebuilt from JAX's
@@ -37,7 +41,7 @@ from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 import _torch_dist
-from _torch_parity import configs, jax_state, port_state, rng
+from _torch_parity import configs, dp_draws, jax_state, port_state, rng
 from smmdax import losses as jlosses
 from smmdax import train as jtrain
 from smmdax.configs import Config as JConfig
@@ -54,12 +58,21 @@ LOSS_CASES = [("tmmd", True, "off"), ("tmmd", True, "on"), ("tmmd", False, "off"
               ("smmd", True, "on"), ("smmd", False, "off")]
 LOSS_IDS = [f"{m}-{'ring' if r else 'gathered'}-{'fused' if p == 'on' else 'dense'}"
             for m, r, p in LOSS_CASES]
+# (model, use_pallas) of the per-rank cases: global_batch_mmd=False, each
+# rank's own MMD estimator averaged over the ranks (smmdax/losses.py:141-150)
+PER_RANK_CASES = [("smmd", "off"), ("mmd", "on")]
+PER_RANK_IDS = [f"{m}-{'fused' if p == 'on' else 'dense'}" for m, p in PER_RANK_CASES]
 
 
-def _loss_cfg(model, ring, use_pallas):
+def _loss_cfg(model, ring, use_pallas, global_batch=True):
     return dict(model=model, kernel="rq", dataset="synthetic", batch_size=16,
                 output_size=32, gf_dim=8, df_dim=8, dof_dim=4, z_dim=8, dsteps=1,
-                gsteps=1, num_data_shards=N, use_ring_mmd=ring, use_pallas=use_pallas)
+                gsteps=1, num_data_shards=N, use_ring_mmd=ring, use_pallas=use_pallas,
+                global_batch_mmd=global_batch)
+
+
+def _per_rank_cfg(model, use_pallas):
+    return _loss_cfg(model, False, use_pallas, global_batch=False)
 
 
 def _loss_inputs():
@@ -68,23 +81,6 @@ def _loss_inputs():
     fake = (r.standard_normal((16, 4, 4, 2)) * 0.5 + 0.3).astype(np.float32)
     w = (r.standard_normal((32, 4)) * 0.3).astype(np.float32)
     return real, fake, w
-
-
-def dp_draws(jcfg, key, dsteps, gsteps, n):
-    """Each rank's draws of JAX's shard_map macro-step: the update keys
-    of train.py:286, folded with the rank (train.py:173-177), split into
-    the latent key (train.py:189-191, 214-217).  The tmmd step draws
-    nothing else."""
-    assert not jcfg.with_scaling and jcfg.gradient_penalty == 0
-    _, *step_rngs = jax.random.split(key, 1 + dsteps + gsteps)
-    shape = (jcfg.batch_size // n, jcfg.z_dim)
-
-    def z(r, i):
-        rng_z, _ = jax.random.split(jax.random.fold_in(r, i))
-        return np.asarray(jax.random.uniform(rng_z, shape, minval=-1.0, maxval=1.0))
-
-    return [{"d_z": np.stack([z(r, i) for r in step_rngs[:dsteps]]),
-             "g_z": np.stack([z(r, i) for r in step_rngs[dsteps:]])} for i in range(n)]
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +95,9 @@ def two_ranks(tmp_path_factory):
     noise = dp_draws(jcfg, jnp.asarray(js.rng), DSTEPS, GSTEPS, N)
     ts = port_state(tcfg, js)
     payload = dict(
-        losses=[dict(cfg=_loss_cfg(*c), real=real, fake=fake, w=w) for c in LOSS_CASES],
+        losses=[dict(cfg=cfg, real=real, fake=fake, w=w)
+                for cfg in [_loss_cfg(*c) for c in LOSS_CASES]
+                + [_per_rank_cfg(*c) for c in PER_RANK_CASES]],
         step=dict(cfg=dataclasses.asdict(tcfg), gen=ts.gen.state_dict(),
                   disc=ts.disc.state_dict(), noise=noise, real=batch))
     ranks = _torch_dist.run(N, "dp_suite", payload, tmp_path_factory.mktemp("dp"))
@@ -122,6 +120,40 @@ def test_sharded_critic_loss_matches_global(two_ranks, case):
     (loss, aux), g = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(w))
     for r in two_ranks["ranks"]:
         got = r["losses"][case]
+        assert got["loss"] == pytest.approx(float(loss), rel=5e-4, abs=1e-5)
+        assert got["ratio"] == pytest.approx(float(aux.ratio), rel=5e-4, abs=1e-5)
+        assert got["mmd2"] == pytest.approx(float(aux.mmd2), rel=2e-4, abs=1e-6)
+        if jcfg.with_scaling:
+            assert got["sigma"] == pytest.approx(float(aux.sigma), rel=2e-4)
+        np.testing.assert_allclose(got["grad"], np.asarray(g), rtol=1e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", range(len(PER_RANK_CASES)), ids=PER_RANK_IDS)
+def test_per_rank_critic_loss_matches_jax_shard_map(two_ranks, case):
+    """global_batch_mmd=False: each rank's MMD^2 of its own blocks, pmean'd,
+    against JAX's critic_loss with axis_name under shard_map on a 2-device
+    mesh (not the global loss), and the pmean'd critic gradient."""
+    real, fake, w = _loss_inputs()
+    jcfg = JConfig(**{**_per_rank_cfg(*PER_RANK_CASES[case]), "use_pallas": "off"})
+    mesh = Mesh(np.array(jax.devices()[:N]), ("data",))
+
+    def shard(wp, r, f):
+        def jloss(wp):
+            critic = lambda x: x.reshape(x.shape[0], -1) @ wp  # noqa: E731
+            return jlosses.critic_loss(jcfg, critic, r, f, jax.random.PRNGKey(1),
+                                       axis_name="data")
+
+        (loss, aux), g = jax.value_and_grad(jloss, has_aux=True)(wp)
+        return loss, aux, jax.lax.pmean(g, "data")
+
+    loss, aux, g = jax.jit(shard_map(shard, mesh=mesh, in_specs=(P(), P("data"), P("data")),
+                                     out_specs=P(), check_rep=False))(w, real, fake)
+    # the global estimator differs: the case holds the per-rank one
+    glob = jlosses.critic_loss(jcfg.replace(global_batch_mmd=True), lambda x: x.reshape(
+        x.shape[0], -1) @ w, real, fake, jax.random.PRNGKey(1))[1]
+    assert abs(float(glob.mmd2) - float(aux.mmd2)) > 1e-3 * abs(float(glob.mmd2))
+    for r in two_ranks["ranks"]:
+        got = r["losses"][len(LOSS_CASES) + case]
         assert got["loss"] == pytest.approx(float(loss), rel=5e-4, abs=1e-5)
         assert got["ratio"] == pytest.approx(float(aux.ratio), rel=5e-4, abs=1e-5)
         assert got["mmd2"] == pytest.approx(float(aux.mmd2), rel=2e-4, abs=1e-6)
