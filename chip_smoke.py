@@ -7,12 +7,15 @@
     python3 chip_smoke.py --only inception
     python3 chip_smoke.py --only formats
     python3 chip_smoke.py --only dryrun
+    python3 chip_smoke.py --tree DIR --only decoders
 
 (The second form profiles the bf16 steps of phases 3 and 4 of the
 ``smmdax_torch`` in DIR, e.g. an earlier commit unpacked by ``git
 archive``, to compare its kernels' device time with this tree's.  The
 third runs phase 9 alone, the fourth phase 10, the fifth phase 11, the
-sixth phase 12.)
+sixth phase 12.  The last times this tree's baseline JPEG decoder against
+DIR's, both built in one process and run by turns on this tree's
+fixtures, without building the kernels.)
 
 Phases, each fatal on failure:
 
@@ -113,22 +116,29 @@ Phases, each fatal on failure:
    (e) the trained EMA generator exported at batch 512 and loaded in a
    fresh process with torch alone, equal to ``sample`` on the same z to
    1e-6, and images/s of the loaded program against eager ``sample``;
-11. real image formats, from the committed JPEG and webp fixtures
-   (``tests/fixtures/port_images`` and ``port_webp``, with PIL's hashes in
-   their manifests):
-   (a) the native JPEG decoder built with g++ from the checkout (its
-   build time printed); every fixture decoded to PIL's recorded bytes and
-   to the plain decoder's, its ``center_crop_resize`` at 160 (crop 160) and
-   64 (the shorter side) equal to PIL's recorded hashes and to the plain
-   resize, the refused layouts (progressive, CMYK) raising in both
-   decoders; ms per image of decode and crop / resize at 1 and 8 threads,
-   178x218 and 256x256, the latter also with the numpy resize in place of
-   the native one (8 threads); (b) a CelebA-layout directory of 1,024
-   JPEGs, an LSUN LMDB of 1,024 lossy webp records at 256 px (the official
-   LSUN encoding; the port's ``write_lmdb``) and a TFRecord shard of 256
+11. real image formats, from the committed JPEG, PNG and webp fixtures
+   (``tests/fixtures/port_images``, ``port_png`` and ``port_webp``, with
+   PIL's hashes in their manifests):
+   (a) the native JPEG and PNG decoders built with g++ from the checkout
+   (their build times printed); every JPEG fixture (baseline and
+   progressive; grey, YCbCr, RGB, CMYK and YCCK) and every PNG fixture
+   (palette, grey at 1-16 bits, grey+alpha, RGB and RGBA at 8 and 16 bits,
+   Adam7, every filter) decoded to PIL's recorded bytes and to the plain
+   decoder's, its ``center_crop_resize`` at 160 (crop 160) and 64 (the
+   shorter side) equal to PIL's recorded hashes and to the plain resize;
+   the refused JPEG layouts (lossless, hierarchical, arithmetic, 12-bit,
+   4:4:0, unsent progressive bits) raising ``JPEGUnsupported`` in both
+   decoders, naming their ROADMAP item; truncated PNGs raising; ms per
+   image of decode and crop / resize at 1 and 8 threads: JPEG baseline and
+   progressive at 178x218 and 256x256 4:2:0, CMYK at 256x256 (baseline
+   256x256 also with the numpy resize, 8 threads), PNG palette, 16-bit
+   grey and Adam7 at 256x256; (b) a CelebA-layout directory of 1,024 files
+   cycling over every readable JPEG and PNG fixture (mixed layouts), an
+   LSUN LMDB of 1,024 lossy webp records at 256 px (the official LSUN
+   encoding; the port's ``write_lmdb``) and a TFRecord shard of 256
    encoded JPEG records framed here, all copies of the fixtures;
    (c) ``exp/celeba160_sn_smmd_resnet.sh``'s flags at full width (gf / df
-   32, B 64, 160 px, K 4, bf16, hutchinson) host-fed from the JPEG
+   32, B 64, 160 px, K 4, bf16, hutchinson) host-fed from the mixed
    directory, cut to 12 macro-steps with a checkpoint at 6, the drawn
    files' crops held to PIL's hashes, a run stopped at 6 and resumed in a
    fresh process equal bit for bit; trainer images/s (all the images of
@@ -144,11 +154,12 @@ Phases, each fatal on failure:
    at 64 px from the ImageNet-64 TFRecord shard, and one macro-batch of its
    records on 1 and on 8 decode threads; (f) webp and the writers: the
    native webp decoder built with g++ from the checkout (its build time
-   printed), every webp fixture (lossy, lossless, extended) decoded to
-   PIL's recorded bytes and 64 px crop, the animated fixture and truncated
-   files raising, ms per image at 256 px (lossy q75 and lossless, decode
-   and crop / resize to 64) on 1 and 8 threads (this part runs right after
-   (a)); then ``exp/lsun64_sn_smmd_resnet.sh``'s flags at full width
+   printed), every webp fixture (lossy, lossless, extended, and
+   animations, their first frame) decoded to PIL's recorded bytes and 64
+   px crop, truncated files raising, ms per image at 256 px (lossy q75,
+   lossless, an animation's first frame; decode and crop / resize to 64)
+   on 1 and 8 threads (this part runs right after (a)); then
+   ``exp/lsun64_sn_smmd_resnet.sh``'s flags at full width
    (sn-smmd, rq, ResNet, 64 px, B 64, dof 16, 5 critic updates, K 4, bf16,
    hutchinson) host-fed from the webp LMDB with ``--tensorboard true``,
    cut to 12 macro-steps with a checkpoint at 6, as (c): the drawn
@@ -156,7 +167,9 @@ Phases, each fatal on failure:
    bit for bit, images/s, host ms per macro-batch against ms per
    macro-step and the launches of kernels 1-2; its event files read back
    with ``tfevents.read_events`` (both CRCs) equal to the JSONL rows; and
-   the toy's GIF from the committed frames (``tests/fixtures/port_gif``)
+   the toy's GIF from the committed frames (``tests/fixtures/port_gif``,
+   read by the native PNG decoder), its seconds against the plain
+   decoder's 4.60 s,
    equal to the SHA-256 in their manifest;
 12. the entry point and the multichip dry run (``smmdax_torch.graft_entry``):
    (a) ``entry()`` at the flagship's full width on cuda:0 in float32, the
@@ -2576,7 +2589,8 @@ def run_inception(tmp: str, results: dict, tree: str) -> dict:
 
 
 FIXTURE_DIR = os.path.join("tests", "fixtures", "port_images")
-FORMAT_FILES = 1024            # JPEGs of the CelebA directory, records of the LSUN LMDB
+PNG_FIXTURE_DIR = os.path.join("tests", "fixtures", "port_png")
+FORMAT_FILES = 1024            # files of the CelebA directory, records of the LSUN LMDB
 TFRECORD_RECORDS = 256         # records of the ImageNet-64 TFRecord shard
 DECODE_TIMING_IMAGES = 384     # one celeba160 macro-batch: (5 + 1) x 64
 # exp/celeba160_sn_smmd_resnet.sh, then the cut to 12 macro-steps with a
@@ -2626,7 +2640,18 @@ GIF_FIXTURE_DIR = os.path.join("tests", "fixtures", "port_gif")
 LSUN_WEBP_FIXTURES = ("lossy_q75_256x256.webp", "lossy_q75_256x341.webp")   # the LMDB's values
 WEBP_TIMINGS = (("lossy q75 256x256 -> 64", "lossy_q75_256x256.webp"),
                 ("lossless 256x256 -> 64", "lossless_levels16_256x256.webp"),
-                ("lossy q75 256x341 -> 64", "lossy_q75_256x341.webp"))
+                ("lossy q75 256x341 -> 64", "lossy_q75_256x341.webp"),
+                ("animated lossy 256x256, first frame -> 64", "animated_lossy_256x256.webp"))
+# the JPEG layouts timed (label, fixture name prefix, size, crop), and the PNGs
+JPEG_TIMINGS = (("178x218 -> crop 160", "celeba_", 160, 160),
+                ("256x256 -> 64", "lsun_", 64, None),
+                ("progressive 178x218 -> crop 160", "progressive_celeba_", 160, 160),
+                ("progressive 4:2:0 256x256 -> 64", "progressive_lsun_", 64, None),
+                ("CMYK 256x256 -> 64", "cmyk_256x256", 64, None))
+PNG_TIMINGS = (("palette 256x256 -> 64", "p8_256x256.png"),
+               ("16-bit grey 256x256 -> 64", "l16_256x256.png"),
+               ("Adam7 RGB 256x256 -> 64", "adam7_rgb8_256x256.png"))
+GIF_SECONDS_PLAIN_PNG = 4.60   # the toy's GIF when the plain PNG decoder read it (PERF.md §6)
 LSUN64_TRAIN_FLAGS = [
     "--is_train", "true", "--dataset", "lsun", "--architecture", "resnet",
     "--model", "sn-smmd", "--kernel", "rq", "--batch_size", "64", "--output_size", "64",
@@ -2657,13 +2682,57 @@ def _sha256(arr) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
-def check_decoder(tree: str, results: dict) -> list:
-    """(a) The native decoder built from the checkout; every fixture against
-    PIL's recorded hashes and the plain decoder; its crops at 160 and 64
-    against their recorded hashes and the plain resize; the refused layouts
-    raise in both decoders.  ms per image at 1 and 8 threads.  Returns the
-    fixtures."""
+def _ms_per_image(one, work: list, threads_list=(1, 8)) -> dict:
+    """ms per item of ``one`` over ``work``, on 1 thread and in a pool of
+    8, after 8 warm-up calls."""
     import concurrent.futures as cf
+    for item in work[:8]:
+        one(item)
+    row = {}
+    for threads in threads_list:
+        t0 = time.perf_counter()
+        if threads == 1:
+            for item in work:
+                one(item)
+        else:
+            with cf.ThreadPoolExecutor(threads) as pool:
+                list(pool.map(one, work))
+        row[f"ms_per_image_{threads}_thread"] = 1e3 * (time.perf_counter() - t0) / len(work)
+    return row
+
+
+def _log_timings(what: str, timings: dict) -> None:
+    for label, row in timings.items():
+        single, eight = row.get("ms_per_image_1_thread"), row["ms_per_image_8_thread"]
+        log(f"{what}: {label}: "
+            + (f"{single:.3f} ms per image on 1 thread, {eight:.3f} on 8" if single
+               else f"{eight:.3f} ms per image on 8 threads")
+            + f" ({DECODE_TIMING_IMAGES} images, decode and crop / resize)")
+
+
+def _check_crops(what: str, name: str, got, e: dict, image) -> None:
+    """The crops of a decode at 160 (crop 160) and 64 (the shorter side)
+    against PIL's recorded hashes and the plain resize."""
+    import numpy as np
+    for size, crop, key in ((160, 160, "crop160_sha256"), (64, None, "crop64_sha256")):
+        cut = image.center_crop_resize(got, size, crop=crop)
+        if _sha256(cut) != e[key]:
+            fail(f"{what}: {name} center_crop_resize at {size} differs from PIL's")
+        h, w = got.shape[:2]
+        c = min(w, h) if crop is None else min(crop, w, h)
+        top, left = (h - c) // 2, (w - c) // 2
+        plain = image.resize_bilinear_pil_plain(got[top:top + c, left:left + c], (size, size))
+        if not np.array_equal(plain, cut):
+            fail(f"{what}: {name} resize at {size} differs from the plain resize")
+
+
+def check_decoder(tree: str, results: dict) -> list:
+    """(a) The native JPEG decoder built from the checkout; every fixture
+    (baseline and progressive, grey, YCbCr, RGB, CMYK, YCCK) against PIL's
+    recorded hashes and the plain decoder; its crops at 160 and 64 against
+    their recorded hashes and the plain resize; the refused layouts raise
+    JPEGUnsupported in both decoders, naming their ROADMAP item.  ms per
+    image at 1 and 8 threads.  Returns the fixtures."""
     import numpy as np
     from smmdax_torch.data import image, jpeg, native
     t0 = time.perf_counter()
@@ -2677,7 +2746,9 @@ def check_decoder(tree: str, results: dict) -> list:
             for decode in (native.decode_jpeg, jpeg.decode_jpeg):
                 try:
                     decode(data)
-                except NotImplementedError:
+                except jpeg.JPEGUnsupported as err:
+                    if f"ROADMAP: {jpeg.ROADMAP_ITEM}" not in str(err):
+                        fail(f"decoder: {name}'s refusal names no ROADMAP item: {err}")
                     continue
                 fail(f"decoder: {name} decoded by {decode.__module__}, must be refused")
             continue
@@ -2686,16 +2757,7 @@ def check_decoder(tree: str, results: dict) -> list:
             fail(f"decoder: {name} differs from PIL's bytes")
         if not np.array_equal(jpeg.decode_jpeg(data), got):
             fail(f"decoder: {name} differs from the plain decoder")
-        for size, crop, key in ((160, 160, "crop160_sha256"), (64, None, "crop64_sha256")):
-            cut = image.center_crop_resize(got, size, crop=crop)
-            if _sha256(cut) != e[key]:
-                fail(f"decoder: {name} center_crop_resize at {size} differs from PIL's")
-            h, w = got.shape[:2]
-            c = min(w, h) if crop is None else min(crop, w, h)
-            top, left = (h - c) // 2, (w - c) // 2
-            plain = image.resize_bilinear_pil_plain(got[top:top + c, left:left + c], (size, size))
-            if not np.array_equal(plain, cut):
-                fail(f"decoder: {name} resize at {size} differs from the plain resize")
+        _check_crops("decoder", name, got, e, image)
         read += 1
     timings = {}
 
@@ -2707,43 +2769,64 @@ def check_decoder(tree: str, results: dict) -> list:
         return image.resize_bilinear_pil_plain(native.decode_jpeg(data), (size, size))
 
     # the LSUN unit of work twice, with the native resize and with its numpy
-    # version: whether the C++ passes earn their place on the training path
-    for label, prefix, size, crop, crop_resize in (
-            ("178x218 -> crop 160", "celeba_", 160, 160, native_resize),
-            ("256x256 -> 64", "lsun_", 64, None, native_resize),
-            ("256x256 -> 64, numpy resize", "lsun_", 64, None, numpy_resize)):
+    # version (in the pool only: 1 thread of it takes seconds): whether the
+    # C++ passes earn their place on the training path
+    for label, prefix, size, crop in JPEG_TIMINGS + (
+            ("256x256 -> 64, numpy resize", "lsun_", 64, None),):
         datas = [d for e, d in fixtures if e["name"].startswith(prefix)]
         work = [datas[i % len(datas)] for i in range(DECODE_TIMING_IMAGES)]
-
-        def one(data, size=size, crop=crop, crop_resize=crop_resize):
-            return crop_resize(data, size, crop)
-
-        for _ in work[:8]:
-            one(_)
-        row = {}
-        # numpy's resize only where it would run, in the pool (1 thread of
-        # it takes seconds)
-        for threads in ((8,) if crop_resize is numpy_resize else (1, 8)):
-            t0 = time.perf_counter()
-            if threads == 1:
-                for data in work:
-                    one(data)
-            else:
-                with cf.ThreadPoolExecutor(threads) as pool:
-                    list(pool.map(one, work))
-            row[f"ms_per_image_{threads}_thread"] = 1e3 * (time.perf_counter() - t0) / len(work)
-        timings[label] = row
+        fn = numpy_resize if "numpy" in label else native_resize
+        timings[label] = _ms_per_image(lambda data, size=size, crop=crop, fn=fn:
+                                       fn(data, size, crop), work,
+                                       (8,) if "numpy" in label else (1, 8))
     results["formats"]["decoder"] = dict(build_s=build_s, fixtures_read=read,
                                          fixtures_refused=len(fixtures) - read, timings=timings)
-    log(f"decoder: built in {build_s:.1f} s; {read} fixtures equal PIL's hashes and the plain "
-        f"decoder, crops at 160 and 64 equal PIL's and the plain resize; "
-        f"{len(fixtures) - read} refused layouts raise")
-    for label, row in timings.items():
-        single, eight = row.get("ms_per_image_1_thread"), row["ms_per_image_8_thread"]
-        log(f"decoder: {label}: "
-            + (f"{single:.3f} ms per image on 1 thread, {eight:.3f} on 8" if single
-               else f"{eight:.3f} ms per image on 8 threads")
-            + f" ({DECODE_TIMING_IMAGES} images, decode and crop / resize)")
+    log(f"decoder: built in {build_s:.1f} s; {read} fixtures (baseline and progressive, grey, "
+        f"YCbCr, RGB, CMYK, YCCK) equal PIL's hashes and the plain decoder, crops at 160 and "
+        f"64 equal PIL's and the plain resize; {len(fixtures) - read} refused layouts raise")
+    _log_timings("decoder", timings)
+    return fixtures
+
+
+def check_png(tree: str, results: dict) -> list:
+    """(a) The native PNG decoder built from the checkout; every PNG fixture
+    (palette at 1-8 bits with and without tRNS, grey at 1-16 bits, grey +
+    alpha, RGB and RGBA at 8 and 16 bits, Adam7, every filter) decoded to
+    PIL's recorded bytes and to the plain decoder's, its crops at 160 and
+    64 to PIL's hashes and the plain resize; truncated files raising.  ms
+    per image (decode and crop / resize to 64) at 1 and 8 threads.  Returns
+    the fixtures."""
+    import numpy as np
+    from smmdax_torch import utils
+    from smmdax_torch.data import image, native
+    t0 = time.perf_counter()
+    native.png_library()
+    build_s = time.perf_counter() - t0
+    fixtures = _fixtures(tree, PNG_FIXTURE_DIR)
+    for e, data in fixtures:
+        name = e["name"]
+        got = native.decode_png(data)
+        if got.shape != (e["height"], e["width"], 3) or _sha256(got) != e["rgb_sha256"]:
+            fail(f"png: {name} differs from PIL's bytes")
+        if not np.array_equal(utils.decode_png(data), got):
+            fail(f"png: {name} differs from the plain decoder")
+        _check_crops("png", name, got, e, image)
+        for cut in (len(data) // 2, 40):   # 40: the header and no image data
+            try:
+                native.decode_png(data[:cut])
+            except ValueError:
+                continue
+            fail(f"png: {name} cut to {cut} bytes decoded, must raise")
+    by_name = {e["name"]: d for e, d in fixtures}
+    timings = {label: _ms_per_image(
+        lambda data: image.center_crop_resize(native.decode_png(data), 64),
+        [by_name[name]] * DECODE_TIMING_IMAGES) for label, name in PNG_TIMINGS}
+    results["formats"]["png"] = dict(build_s=build_s, fixtures_read=len(fixtures),
+                                     timings=timings)
+    log(f"png: built in {build_s:.1f} s; {len(fixtures)} fixtures (palette, grey 1-16 bits, "
+        "grey+alpha, RGB / RGBA 8 and 16 bits, Adam7) equal PIL's hashes and the plain "
+        "decoder, crops at 160 and 64 too; truncated files raise")
+    _log_timings("png", timings)
     return fixtures
 
 
@@ -2766,23 +2849,32 @@ def _tf_example(jpeg: bytes) -> bytes:
     return _pb(1, _pb(1, entry))                        # Example.features
 
 
-def make_format_assets(data_dir: str, fixtures: list, webp: list) -> dict:
+def mixed_fixtures(fixtures: list, png: list) -> list:
+    """Every readable JPEG and PNG fixture, old and new: (manifest entry,
+    bytes, extension), the CelebA directory's cycle."""
+    return [(e, d, ".jpg") for e, d in fixtures if "refuse" not in e] + \
+        [(e, d, ".png") for e, d in png]
+
+
+def make_format_assets(data_dir: str, fixtures: list, png: list, webp: list) -> dict:
     """(b) Training-size assets from the fixtures, written by this script
-    and the port's own writer: a CelebA-layout directory of JPEGs, an LSUN
-    LMDB of lossy webp records at 256 px (the official LSUN encoding) and
-    one TFRecord shard of JPEGs (framed here; CRCs left zero: neither
-    reader checks them)."""
+    and the port's own writer: a CelebA-layout directory cycling over every
+    readable JPEG and PNG fixture (mixed layouts), an LSUN LMDB of lossy
+    webp records at 256 px (the official LSUN encoding) and one TFRecord
+    shard of JPEGs (framed here; CRCs left zero: neither reader checks
+    them)."""
     import struct
     from smmdax_torch.data.lmdb_store import write_lmdb
-    celeba = [d for e, d in fixtures if e["name"].startswith("celeba_")]
+    mixed = mixed_fixtures(fixtures, png)
     lsun = [d for e, d in fixtures if e["name"].startswith("lsun_")]
     by_name = {e["name"]: d for e, d in webp}
     lsun_webp = [by_name[n] for n in LSUN_WEBP_FIXTURES]
     root = os.path.join(data_dir, "celeba")
     os.makedirs(root)
     for i in range(FORMAT_FILES):
-        with open(os.path.join(root, f"{i:06d}.jpg"), "wb") as f:
-            f.write(celeba[i % len(celeba)])
+        _, data, ext = mixed[i % len(mixed)]
+        with open(os.path.join(root, f"{i:06d}{ext}"), "wb") as f:
+            f.write(data)
     env = os.path.join(data_dir, "lsun", "bedroom_train_lmdb")
     write_lmdb(env, ((f"{i:016x}".encode(), lsun_webp[i % len(lsun_webp)])
                      for i in range(FORMAT_FILES)))
@@ -2796,7 +2888,8 @@ def make_format_assets(data_dir: str, fixtures: list, webp: list) -> dict:
                                for n in os.listdir(root)) / 2**20,
                  lmdb_mb=os.path.getsize(os.path.join(env, "data.mdb")) / 2**20,
                  tfrecord_mb=os.path.getsize(shard) / 2**20)
-    log(f"formats: {FORMAT_FILES} CelebA JPEGs ({sizes['celeba_mb']:.1f} MB), an LSUN LMDB of "
+    log(f"formats: {FORMAT_FILES} CelebA files cycling over {len(mixed)} JPEG and PNG "
+        f"layouts ({sizes['celeba_mb']:.1f} MB), an LSUN LMDB of "
         f"{FORMAT_FILES} lossy webp records ({sizes['lmdb_mb']:.1f} MB), a TFRecord shard of "
         f"{TFRECORD_RECORDS} JPEGs ({sizes['tfrecord_mb']:.1f} MB)")
     return sizes
@@ -2915,13 +3008,14 @@ def _host_fed_run(tmp: str, data_dir: str, tree: str, name: str, flags: list, st
     return res, trainer
 
 
-def run_celeba160(tmp: str, data_dir: str, fixtures: list, results: dict, tree: str) -> dict:
+def run_celeba160(tmp: str, data_dir: str, mixed: list, results: dict, tree: str) -> dict:
     """(c) exp/celeba160_sn_smmd_resnet.sh at full width, host-fed from the
-    JPEG directory, 12 macro-steps with a checkpoint at 6; a run stopped at
-    6 and resumed in a fresh process equals it bit for bit.  Returns the
-    kernels' launches in the straight run."""
+    directory of mixed JPEG and PNG layouts, 12 macro-steps with a
+    checkpoint at 6; a run stopped at 6 and resumed in a fresh process
+    equals it bit for bit.  Returns the kernels' launches in the straight
+    run."""
     from smmdax_torch.data.pipeline import CelebASource
-    want = [e["crop160_sha256"] for e, _ in fixtures if e["name"].startswith("celeba_")]
+    want = [e["crop160_sha256"] for e, _, _ in mixed]
     res, _ = _host_fed_run(tmp, data_dir, tree, "celeba160",
                            CELEBA160_TRAIN_FLAGS + CELEBA160_CUT_FLAGS, CELEBA160_STEPS,
                            CelebASource, FORMAT_FILES, want)
@@ -3055,25 +3149,18 @@ def run_imagenet64_tfrecord(tmp: str, data_dir: str, results: dict) -> None:
 
 def check_webp(tree: str, results: dict) -> list:
     """(f) The native webp decoder built from the checkout; every webp
-    fixture (lossy and lossless, simple and extended) decoded to PIL's
-    recorded bytes and its 64 px crop to PIL's recorded hash; the animated
-    fixture and truncated files raising.  ms per image (decode and crop /
-    resize to 64) at 1 and 8 threads.  Returns the fixtures."""
-    import concurrent.futures as cf
+    fixture (lossy and lossless, simple and extended, and animations,
+    whose first frame is read) decoded to PIL's recorded bytes and its
+    64 px crop to PIL's recorded hash; truncated files raising.  ms per
+    image (decode and crop / resize to 64) at 1 and 8 threads.  Returns the
+    fixtures."""
     from smmdax_torch.data import image, native
     t0 = time.perf_counter()
     native.webp_library()
     build_s = time.perf_counter() - t0
     fixtures = _fixtures(tree, WEBP_FIXTURE_DIR)
-    read = 0
     for e, data in fixtures:
         name = e["name"]
-        if "refuse" in e:
-            try:
-                native.decode_webp(data)
-            except NotImplementedError:
-                continue
-            fail(f"webp: {name} decoded, must be refused")
         got = native.decode_webp(data)
         if got.shape != (e["height"], e["width"], 3) or _sha256(got) != e["rgb_sha256"]:
             fail(f"webp: {name} differs from PIL's bytes")
@@ -3085,38 +3172,17 @@ def check_webp(tree: str, results: dict) -> list:
             except ValueError:
                 continue
             fail(f"webp: {name} cut to {cut} bytes decoded, must raise")
-        read += 1
+    animated = sum(e["name"].startswith("animated") for e, _ in fixtures)
     by_name = {e["name"]: d for e, d in fixtures}
-    timings = {}
-    for label, name in WEBP_TIMINGS:
-        data = by_name[name]
-
-        def one(data=data):
-            return image.center_crop_resize(native.decode_webp(data), 64)
-
-        for _ in range(8):
-            one()
-        row = {}
-        for threads in (1, 8):
-            t0 = time.perf_counter()
-            if threads == 1:
-                for _ in range(DECODE_TIMING_IMAGES):
-                    one()
-            else:
-                with cf.ThreadPoolExecutor(threads) as pool:
-                    list(pool.map(lambda _: one(), range(DECODE_TIMING_IMAGES)))
-            row[f"ms_per_image_{threads}_thread"] = (
-                1e3 * (time.perf_counter() - t0) / DECODE_TIMING_IMAGES)
-        timings[label] = row
-    results["formats"]["webp"] = dict(build_s=build_s, fixtures_read=read,
-                                      fixtures_refused=len(fixtures) - read, timings=timings)
-    log(f"webp: built in {build_s:.1f} s; {read} fixtures (lossy and lossless) equal PIL's "
-        f"hashes, crops at 64 too; {len(fixtures) - read} animated refused, truncated files "
+    timings = {label: _ms_per_image(
+        lambda data: image.center_crop_resize(native.decode_webp(data), 64),
+        [by_name[name]] * DECODE_TIMING_IMAGES) for label, name in WEBP_TIMINGS}
+    results["formats"]["webp"] = dict(build_s=build_s, fixtures_read=len(fixtures),
+                                      animated=animated, timings=timings)
+    log(f"webp: built in {build_s:.1f} s; {len(fixtures)} fixtures (lossy and lossless, "
+        f"{animated} of them animations) equal PIL's hashes, crops at 64 too; truncated files "
         "raise")
-    for label, row in timings.items():
-        log(f"webp: {label}: {row['ms_per_image_1_thread']:.3f} ms per image on 1 thread, "
-            f"{row['ms_per_image_8_thread']:.3f} on 8 ({DECODE_TIMING_IMAGES} images, decode "
-            "and crop / resize)")
+    _log_timings("webp", timings)
     return fixtures
 
 
@@ -3166,9 +3232,12 @@ def check_gif(tmp: str, tree: str, results: dict) -> None:
     if digest != manifest["gif_sha256"]:
         fail(f"gif: {digest} is not the recorded {manifest['gif_sha256']}")
     results["formats"]["gif"] = dict(frames=len(manifest["frames"]), seconds=secs,
-                                     bytes=os.path.getsize(path))
-    log(f"gif: {len(manifest['frames'])} committed toy frames stitched in {secs:.2f} s, equal to "
-        "the recorded SHA-256")
+                                     bytes=os.path.getsize(path),
+                                     seconds_plain_png=GIF_SECONDS_PLAIN_PNG)
+    log(f"gif: {len(manifest['frames'])} committed toy frames read by the native PNG decoder "
+        f"and stitched in {secs:.2f} s (read by the plain decoder: "
+        f"{GIF_SECONDS_PLAIN_PNG:.2f} s), "
+        "equal to the recorded SHA-256")
 
 
 def run_lsun64(tmp: str, data_dir: str, webp: list, results: dict, tree: str) -> dict:
@@ -3202,10 +3271,11 @@ def run_formats(tmp: str, results: dict, tree: str) -> tuple:
     t_phase = time.perf_counter()
     results["formats"] = {}
     fixtures = check_decoder(tree, results)
+    png = check_png(tree, results)
     webp = check_webp(tree, results)
     data_dir = os.path.join(tmp, "formats_data")
-    results["formats"]["assets"] = make_format_assets(data_dir, fixtures, webp)
-    launches = run_celeba160(tmp, data_dir, fixtures, results, tree)
+    results["formats"]["assets"] = make_format_assets(data_dir, fixtures, png, webp)
+    launches = run_celeba160(tmp, data_dir, mixed_fixtures(fixtures, png), results, tree)
     run_lsun_arms(tmp, data_dir, results, tree)
     run_imagenet64_tfrecord(tmp, data_dir, results)
     t_f = time.perf_counter()
@@ -3438,6 +3508,70 @@ def profile_only(results: dict) -> int:
     return 0
 
 
+DECODER_ROUNDS = 10       # --only decoders: rounds of 4 sweeps of 384 images each
+
+
+def _jpeg_library(tree: str, stem: str):
+    """The JPEG decoder built from ``tree``'s source, bound as
+    ``native.library`` binds this tree's."""
+    import ctypes
+    from smmdax_torch.data import native
+    lib = ctypes.CDLL(native.build(os.path.join(tree, "smmdax_torch", "data", "_native",
+                                                "jpeg.cpp"), stem, "JPEG decoder"))
+    for name in ("smm_jpeg_size", "smm_jpeg_decode"):
+        getattr(lib, name).restype = ctypes.c_int
+    lib.smm_jpeg_size.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                  ctypes.c_char_p, ctypes.c_int]
+    lib.smm_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+    return lambda data: native._decode(lib.smm_jpeg_size, lib.smm_jpeg_decode, data,
+                                       native._raise)
+
+
+def decoders_only(tree: str) -> int:
+    """The baseline JPEG decoder of this tree against ``tree``'s (no CUDA
+    build), in this one process: both built from their sources, held equal
+    on this tree's CelebA and LSUN fixtures (and to PIL's recorded hash),
+    then DECODER_ROUNDS rounds of four 384-image sweeps on 1 thread in the
+    orders ABBA and BAAB by turns; the medians of the sweeps' ms per image,
+    their quartiles, and the rounds this tree won."""
+    import numpy as np
+    libs = {"this": _jpeg_library(HERE, "libjpeg_this"),
+            "other": _jpeg_library(tree, "libjpeg_other")}
+    fixtures = _fixtures(HERE)
+    out = {}
+    for label, prefix in (("baseline 178x218", "celeba_"), ("baseline 256x256", "lsun_")):
+        picked = [(e, d) for e, d in fixtures if e["name"].startswith(prefix)]
+        for e, data in picked:
+            got = libs["this"](data)
+            if _sha256(got) != e["rgb_sha256"] or not np.array_equal(libs["other"](data), got):
+                fail(f"decoders: {e['name']} differs between the trees or from PIL's bytes")
+        work = [picked[i % len(picked)][1] for i in range(DECODE_TIMING_IMAGES)]
+        sweeps = {"this": [], "other": []}
+        wins = 0
+        for r in range(DECODER_ROUNDS):
+            order = ("other", "this", "this", "other") if r % 2 == 0 else \
+                ("this", "other", "other", "this")
+            ms = {"this": 0.0, "other": 0.0}
+            for which in order:
+                t = _ms_per_image(libs[which], work, (1,))["ms_per_image_1_thread"]
+                sweeps[which].append(t)
+                ms[which] += t
+            wins += ms["this"] < ms["other"]
+        row = {k: dict(median=float(np.median(v)), quartiles=np.percentile(v, [25, 75]).tolist())
+               for k, v in sweeps.items()}
+        row.update(ratio=row["this"]["median"] / row["other"]["median"], rounds_won=wins)
+        out[label] = row
+        log(f"decoders: {label}: this tree {row['this']['median']:.4f} ms per image, {tree} "
+            f"{row['other']['median']:.4f} (medians of {2 * DECODER_ROUNDS} sweeps of "
+            f"{DECODE_TIMING_IMAGES}, 1 thread, decode only): ratio {row['ratio']:.3f}, this "
+            f"tree faster in {wins} of {DECODER_ROUNDS} rounds; quartiles "
+            f"{row['this']['quartiles']} / {row['other']['quartiles']}")
+    print(json.dumps({"other_tree": tree, "decoders": out}), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
 def write_results(path, results: dict) -> None:
     """All results as JSON at ``path`` (nothing for None)."""
     if path:
@@ -3453,9 +3587,11 @@ def main(argv=None) -> int:
                         help="import smmdax_torch from this checkout (default: beside "
                              "this script), e.g. an earlier commit unpacked by git archive")
     parser.add_argument("--only", choices=("profile", "ranks", "inception", "formats",
-                                           "dryrun"),
+                                           "dryrun", "decoders"),
                         default=None,
-                        help="profile: build, then only the timed and profiled bf16 "
+                        help="decoders: no CUDA build, only this tree's baseline JPEG "
+                             "decoder against --tree's, interleaved in one process; "
+                             "profile: build, then only the timed and profiled bf16 "
                              "steps of phases 3 and 4; prints the launches and device "
                              "us per launch of each csrc kernel, and no ok line; "
                              "ranks: build, then phase 9 alone, and no ok line; "
@@ -3474,6 +3610,9 @@ def main(argv=None) -> int:
     if not os.path.isdir(os.path.join(tree, "smmdax_torch")):
         print(f"chip_smoke: no smmdax_torch package in {tree}", file=sys.stderr)
         return 2
+    if args.only == "decoders":
+        sys.path.insert(0, HERE)
+        return decoders_only(tree)
     sys.path.insert(0, tree)
     from smmdax_torch.cuda import build
     from smmdax_torch.parallel import init_data_axis

@@ -1,4 +1,4 @@
-// Baseline JPEG decoder whose output equals PIL's byte for byte.
+// JPEG decoder whose output equals PIL's byte for byte.
 //
 // PIL decodes with libjpeg-turbo at its defaults, and this file reproduces
 // those defaults exactly: the ISLOW integer IDCT (13 constant bits, 2
@@ -9,13 +9,23 @@
 // images come out as RGB with the grey value in every channel, as PIL's
 // convert("RGB") gives them.
 //
-// Covered: sequential Huffman (SOF0 / SOF1), 8-bit samples, one or three
-// components in a single interleaved scan, luma sampled 1x1, 2x1 or 2x2
-// against 1x1 chroma, restart intervals, byte stuffing and fill bytes,
-// any image size.  Everything else (progressive, arithmetic coding,
-// lossless, 12-bit, CMYK / Adobe colour transforms, other sampling
-// layouts, several scans) is refused with status 1, never decoded
-// differently.
+// Covered: sequential (SOF0 / SOF1) and progressive (SOF2) Huffman coding,
+// 8-bit samples; every scan up to EOI (interleaved, or of one component
+// walking its own extent, sequential scans too) goes into per-component
+// int16 coefficient buffers (jdhuff.c, jdphuff.c: DC first and refinement scans,
+// AC first scans with EOB runs, AC refinement with its correction bits,
+// restart intervals), and the IDCT runs once at the end.  Colour spaces as
+// libjpeg's default_decompress_parms picks them: grey; three components
+// as YCbCr (JFIF, Adobe transform 1) or RGB (Adobe transform 0, or
+// component ids R, G, B), luma sampled 1x1, 2x1 or 2x2 against 1x1;
+// four components at 1x1 as CMYK (Adobe transform 0, or no Adobe marker)
+// or YCCK (any other transform), which PIL reads inverted and converts
+// with its own cmyk2rgb.  Byte stuffing, fill bytes, tables between scans,
+// any image size.  Refused with status 1, never decoded differently:
+// arithmetic coding, lossless, hierarchical, 12-bit, other sampling
+// layouts, a scan naming its components out of the frame's order, and a progressive file whose
+// scans leave the first AC coefficients' bits unsent (libjpeg smooths its
+// blocks then).
 //
 // Also here: the two integer passes of PIL's bilinear resample (horizontal
 // first, rounded to uint8 between them), on fixed-point weights that the
@@ -25,6 +35,7 @@
 // may decode side by side.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -36,6 +47,7 @@ namespace {
 constexpr int kOk = 0;
 constexpr int kUnsupported = 1;
 constexpr int kMalformed = 2;
+constexpr int64_t kMaxPixels = 178956970;   // 2 * PIL's Image.MAX_IMAGE_PIXELS
 
 struct Failure {
   int code;
@@ -59,13 +71,16 @@ struct Huffman {
   int32_t maxcode[17];     // largest code of each length, -1 if none
   int32_t valoffset[17];   // index into vals of a length's first code, minus that code
   uint8_t vals[256];
+  int nvals = 0;
   uint8_t fast_len[512];   // 9-bit lookahead: code length (0: longer than 9)
   uint8_t fast_val[512];
 };
 
 void build_huffman(Huffman& t, const uint8_t* counts, const uint8_t* vals, int nvals) {
   std::memset(t.fast_len, 0, sizeof t.fast_len);
+  std::memset(t.vals, 0, sizeof t.vals);
   std::memcpy(t.vals, vals, nvals);
+  t.nvals = nvals;
   int32_t code = 0;
   int k = 0;
   for (int len = 1; len <= 16; ++len) {
@@ -264,14 +279,23 @@ void idct_islow(const int16_t* coef, const uint16_t* quant, uint8_t* dst, int st
 
 struct Component {
   int id, h, v, tq;
-  int td = 0, ta = 0;        // Huffman tables of the scan
-  int bw = 0, bh = 0;        // blocks per line and per column of the plane
-  std::vector<uint8_t> plane;  // (bh * 8) x (bw * 8) samples
+  int td = 0, ta = 0;          // Huffman tables of the current scan
+  int bw = 0, bh = 0;          // blocks per line and per column of the buffer (whole MCUs)
+  int ew = 0, eh = 0;          // blocks of the component's own extent (non-interleaved scans)
+  std::vector<int16_t> coef;   // bh x bw blocks of 64 coefficients, natural order
+  uint16_t quant[64] = {};     // latched at the component's first scan, as libjpeg does
+  bool latched = false;
+  int coef_bits[64] = {};      // progressive: Al of the last scan that sent each coefficient
+  std::vector<uint8_t> plane;  // (bh * 8) x (bw * 8) samples after the IDCT
   int dc_pred = 0;
 };
 
+enum ColorSpace { kGrey, kYCbCr, kRGB, kCMYK, kYCCK };
+
 struct Header {
   int width = 0, height = 0;
+  int sof = 0;                 // 0xC0 / 0xC1 sequential, 0xC2 progressive
+  int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   std::vector<Component> comps;
   uint16_t quant[4][64];
   bool quant_set[4] = {false, false, false, false};
@@ -279,13 +303,16 @@ struct Header {
   int restart_interval = 0;
   bool jfif = false;
   bool adobe = false;
+  int adobe_transform = 0;
+  ColorSpace space = kGrey;
+  int scans = 0;
+  bool progressive() const { return sof == 0xC2; }
 };
 
 inline uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>((p[0] << 8) | p[1]); }
 
 const char* sof_name(int m) {
   switch (m) {
-    case 0xC2: return "progressive JPEG";
     case 0xC3: return "lossless JPEG";
     case 0xC5: case 0xC6: case 0xC7: return "hierarchical JPEG";
     case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
@@ -294,48 +321,359 @@ const char* sof_name(int m) {
   }
 }
 
-// parses markers up to the frame header (size only) or the first scan
-// header; returns the offset of the entropy-coded data (0 for size only)
-size_t parse(const uint8_t* d, size_t n, Header& hd, bool size_only) {
+std::string sampling(const Header& hd) {
+  std::string s;
+  for (const auto& c : hd.comps)
+    s += (s.empty() ? "" : ",") + std::to_string(c.h) + "x" + std::to_string(c.v);
+  return s;
+}
+
+// the frame header: size, components, and the coefficient buffers
+void read_frame(Header& hd, int m, const uint8_t* s, size_t sl, bool size_only) {
+  if (hd.sof) malformed("a second frame header");
+  if (sl < 6) malformed("short frame header");
+  if (s[0] != 8) unsupported(std::to_string(s[0]) + "-bit JPEG samples");
+  hd.sof = m;
+  hd.height = be16(s + 1);
+  hd.width = be16(s + 3);
+  int nf = s[5];
+  if (hd.height == 0 || hd.width == 0)
+    unsupported("JPEG with its height in a DNL marker, or of zero size");
+  // PIL refuses an image of more than 2 * Image.MAX_IMAGE_PIXELS
+  if (static_cast<int64_t>(hd.width) * hd.height > kMaxPixels)
+    malformed("image of more pixels than PIL opens");
+  if (nf != 1 && nf != 3 && nf != 4)
+    unsupported(std::to_string(nf) + "-component JPEG");
+  if (sl < 6 + 3 * static_cast<size_t>(nf)) malformed("short frame header");
+  hd.comps.clear();
+  for (int c = 0; c < nf; ++c) {
+    Component comp;
+    comp.id = s[6 + 3 * c];
+    comp.h = s[7 + 3 * c] >> 4;
+    comp.v = s[7 + 3 * c] & 15;
+    comp.tq = s[8 + 3 * c];
+    if (comp.h < 1 || comp.h > 4 || comp.v < 1 || comp.v > 4 || comp.tq > 3)
+      malformed("bad component in the frame header");
+    hd.comps.push_back(comp);
+  }
+  if (size_only) return;
+  if (nf == 1) hd.comps[0].h = hd.comps[0].v = 1;   // one component: one block per MCU
+  for (const auto& c : hd.comps) {
+    hd.hmax = std::max(hd.hmax, c.h);
+    hd.vmax = std::max(hd.vmax, c.v);
+  }
+  hd.mcux = (hd.width + 8 * hd.hmax - 1) / (8 * hd.hmax);
+  hd.mcuy = (hd.height + 8 * hd.vmax - 1) / (8 * hd.vmax);
+  for (auto& c : hd.comps) {
+    c.bw = hd.mcux * c.h;
+    c.bh = hd.mcuy * c.v;
+    // jdinput.c: ceil(ceil(width * h / hmax) / 8) blocks
+    c.ew = static_cast<int>((int64_t{hd.width} * c.h + 8 * hd.hmax - 1) / (8 * hd.hmax));
+    c.eh = static_cast<int>((int64_t{hd.height} * c.v + 8 * hd.vmax - 1) / (8 * hd.vmax));
+    c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+    std::fill(c.coef_bits, c.coef_bits + 64, -1);
+  }
+}
+
+// libjpeg's default_decompress_parms (jdapimin.c), then the layouts this
+// decoder holds to PIL; anything else is refused
+void check_layout(Header& hd) {
+  auto& cs = hd.comps;
+  if (cs.size() == 1) {
+    hd.space = kGrey;
+    return;
+  }
+  bool chroma_1x1 = true;
+  for (size_t c = 1; c < cs.size(); ++c) chroma_1x1 = chroma_1x1 && cs[c].h == 1 && cs[c].v == 1;
+  if (cs.size() == 4) {
+    if (!chroma_1x1 || cs[0].h != 1 || cs[0].v != 1)
+      unsupported("4-component JPEG sampling layout " + sampling(hd) +
+                  " (the decoder reads CMYK and YCCK at 1x1)");
+    hd.space = hd.adobe && hd.adobe_transform != 0 ? kYCCK : kCMYK;
+    return;
+  }
+  const auto& y = cs[0];
+  bool luma_ok = (y.h == 1 && y.v == 1) || (y.h == 2 && y.v == 1) || (y.h == 2 && y.v == 2);
+  if (!chroma_1x1 || !luma_ok)
+    unsupported("JPEG sampling layout " + sampling(hd) +
+                " (the decoder reads 4:4:4, 4:2:2 and 4:2:0)");
+  if (hd.jfif)
+    hd.space = kYCbCr;
+  else if (hd.adobe)
+    hd.space = hd.adobe_transform == 0 ? kRGB : kYCbCr;
+  else
+    hd.space = cs[0].id == 'R' && cs[1].id == 'G' && cs[2].id == 'B' ? kRGB : kYCbCr;
+}
+
+struct Scan {
+  int ns = 0;
+  Component* comps[4];
+  int ss = 0, se = 63, ah = 0, al = 0;
+};
+
+Scan read_scan(Header& hd, const uint8_t* s, size_t sl) {
+  if (sl < 1) malformed("short scan header");
+  Scan sc;
+  sc.ns = s[0];
+  if (sc.ns < 1 || sc.ns > 4) malformed("bad component count in the scan header");
+  if (sl < 1 + 2 * static_cast<size_t>(sc.ns) + 3) malformed("short scan header");
+  for (int c = 0; c < sc.ns; ++c) {
+    int id = s[1 + 2 * c];
+    Component* comp = nullptr;
+    for (auto& cc : hd.comps)
+      if (cc.id == id) comp = &cc;
+    if (comp == nullptr) malformed("scan names an unknown component");
+    for (int k = 0; k < c; ++k)
+      if (sc.comps[k] == comp) malformed("scan names a component twice");
+    sc.comps[c] = comp;
+    comp->td = s[2 + 2 * c] >> 4;
+    comp->ta = s[2 + 2 * c] & 15;
+    if (comp->td > 3 || comp->ta > 3) malformed("bad Huffman table id in the scan");
+  }
+  const uint8_t* t = s + 1 + 2 * sc.ns;
+  sc.ss = t[0];
+  sc.se = t[1];
+  sc.ah = t[2] >> 4;
+  sc.al = t[2] & 15;
+  if (!hd.progressive()) {   // one scan of every component, or several scans of some
+    for (int c = 1; c < sc.ns; ++c)
+      if (sc.comps[c] <= sc.comps[c - 1])
+        unsupported("JPEG scan in another order than its frame");
+    if (sc.ss != 0 || sc.se != 63 || sc.ah != 0 || sc.al != 0)
+      malformed("baseline scan with a spectral selection");
+  } else {
+    // jdphuff.c's start_pass_phuff_decoder
+    bool dc = sc.ss == 0;
+    bool bad = dc ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ns != 1);
+    if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
+    if (sc.al > 13) bad = true;
+    if (bad) malformed("bad progressive scan parameters");
+  }
+  for (int c = 0; c < sc.ns; ++c) {
+    Component& comp = *sc.comps[c];
+    if (!comp.latched) {
+      if (!hd.quant_set[comp.tq]) malformed("missing quantization table");
+      std::memcpy(comp.quant, hd.quant[comp.tq], sizeof comp.quant);
+      comp.latched = true;
+    }
+    bool needs_dc = !hd.progressive() || (sc.ss == 0 && sc.ah == 0);
+    bool needs_ac = !hd.progressive() || sc.ss > 0;
+    if ((needs_dc && !hd.dc[comp.td].present) || (needs_ac && !hd.ac[comp.ta].present))
+      malformed("missing Huffman table");
+    if (needs_dc)   // jdhuff.c's jpeg_make_d_derived_tbl
+      for (int k = 0; k < hd.dc[comp.td].nvals; ++k)
+        if (hd.dc[comp.td].vals[k] > 15) malformed("bad DC Huffman table");
+    if (hd.progressive())
+      for (int k = sc.ss; k <= sc.se; ++k) comp.coef_bits[k] = sc.al;
+  }
+  return sc;
+}
+
+inline int16_t jcoef(int v) { return static_cast<int16_t>(v); }   // a JCOEF, 16 bits
+
+// Every MCU of a scan in order, restart intervals included: `block(c,
+// blk)` decodes one block of scan component c.  A scan of one component
+// walks its own extent, one block per MCU (non-interleaved).
+template <typename Block>
+void walk_scan(Header& hd, const Scan& sc, BitReader& br, int& eobrun, Block&& block) {
+  bool single = sc.ns == 1;
+  int mcux = single ? sc.comps[0]->ew : hd.mcux;
+  int mcuy = single ? sc.comps[0]->eh : hd.mcuy;
+  int restarts = 0;
+  long total = static_cast<long>(mcux) * mcuy;
+  for (int c = 0; c < sc.ns; ++c) sc.comps[c]->dc_pred = 0;
+  eobrun = 0;
+  for (long m = 0; m < total; ++m) {
+    if (hd.restart_interval && m > 0 && m % hd.restart_interval == 0) {
+      br.restart(restarts & 7);
+      ++restarts;
+      for (int c = 0; c < sc.ns; ++c) sc.comps[c]->dc_pred = 0;
+      eobrun = 0;
+    }
+    int my = static_cast<int>(m / mcux), mx = static_cast<int>(m % mcux);
+    if (single) {
+      Component& c = *sc.comps[0];
+      block(c, c.coef.data() + (static_cast<size_t>(my) * c.bw + mx) * 64);
+      continue;
+    }
+    for (int ci = 0; ci < sc.ns; ++ci) {
+      Component& c = *sc.comps[ci];
+      for (int v = 0; v < c.v; ++v)
+        for (int h = 0; h < c.h; ++h)
+          block(c, c.coef.data() +
+                       (static_cast<size_t>(my * c.v + v) * c.bw + mx * c.h + h) * 64);
+    }
+  }
+}
+
+inline int dc_diff(BitReader& br, const Huffman& t) {
+  int s = br.decode(t);
+  return s ? extend(br.bits(s), s) : 0;
+}
+
+inline void add_dc(Component& c, int diff) {
+  // jdhuff.c refuses a DC predictor that overflows an int
+  if ((c.dc_pred >= 0 && diff > INT_MAX - c.dc_pred) ||
+      (c.dc_pred < 0 && diff < INT_MIN - c.dc_pred))
+    malformed("DC coefficient out of range");
+  c.dc_pred += diff;
+}
+
+// jdhuff.c (sequential) and jdphuff.c (progressive) into the coefficient
+// buffers
+void decode_scan(const uint8_t* d, size_t n, size_t start, Header& hd, const Scan& sc) {
+  BitReader br{d + start, d + n};
+  int eobrun = 0;
+  const int ss = sc.ss, se = sc.se, al = sc.al;
+  if (!hd.progressive()) {
+    walk_scan(hd, sc, br, eobrun, [&](Component& c, int16_t* blk) {
+      add_dc(c, dc_diff(br, hd.dc[c.td]));
+      blk[0] = jcoef(c.dc_pred);
+      const Huffman& act = hd.ac[c.ta];
+      for (int k = 1; k < 64; ++k) {
+        int rs = br.decode(act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNatural[k]] = jcoef(extend(br.bits(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    });
+  } else if (ss == 0 && sc.ah == 0) {             // DC first
+    walk_scan(hd, sc, br, eobrun, [&](Component& c, int16_t* blk) {
+      add_dc(c, dc_diff(br, hd.dc[c.td]));
+      blk[0] = jcoef(static_cast<int>(static_cast<unsigned>(c.dc_pred) << al));
+    });
+  } else if (ss == 0) {                            // DC refinement
+    walk_scan(hd, sc, br, eobrun, [&](Component&, int16_t* blk) {
+      if (br.bits(1)) blk[0] = jcoef(blk[0] | (1 << al));
+    });
+  } else if (sc.ah == 0) {                         // AC first
+    walk_scan(hd, sc, br, eobrun, [&](Component& c, int16_t* blk) {
+      if (eobrun > 0) {
+        --eobrun;
+        return;
+      }
+      const Huffman& act = hd.ac[c.ta];
+      for (int k = ss; k <= se; ++k) {
+        int rs = br.decode(act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          unsigned v = static_cast<unsigned>(extend(br.bits(s), s));
+          blk[kNatural[k]] = jcoef(static_cast<int>(v << al));
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          eobrun = 1 << r;
+          if (r) eobrun += static_cast<int>(br.bits(r));
+          --eobrun;
+          break;
+        }
+      }
+    });
+  } else {                                         // AC refinement
+    const int p1 = 1 << al, m1 = -(1 << al);
+    walk_scan(hd, sc, br, eobrun, [&](Component& c, int16_t* blk) {
+      const Huffman& act = hd.ac[c.ta];
+      auto correct = [&](int16_t& coef) {
+        if (br.bits(1) && (coef & p1) == 0) coef = jcoef(coef + (coef >= 0 ? p1 : m1));
+      };
+      int k = ss;
+      if (eobrun == 0) {
+        for (; k <= se; ++k) {
+          int rs = br.decode(act);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            s = br.bits(1) ? p1 : m1;   // a newly nonzero coefficient is +-1 at this bit
+          } else if (r != 15) {
+            eobrun = 1 << r;
+            if (r) eobrun += static_cast<int>(br.bits(r));
+            break;
+          }
+          // pass r zero coefficients, correcting the nonzero ones on the way
+          do {
+            int16_t& coef = blk[kNatural[k]];
+            if (coef != 0) {
+              correct(coef);
+            } else if (--r < 0) {
+              break;
+            }
+            ++k;
+          } while (k <= se);
+          if (s) blk[kNatural[k]] = jcoef(s);
+        }
+      }
+      if (eobrun > 0) {
+        for (; k <= se; ++k) {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef != 0) correct(coef);
+        }
+        --eobrun;
+      }
+    });
+  }
+}
+
+// jdcoefct.c's smoothing_ok: libjpeg smooths the blocks of a progressive
+// file whose first AC coefficients still miss bits, which this decoder
+// does not reproduce
+void check_complete(const Header& hd) {
+  if (!hd.progressive()) return;
+  static const int kSaved[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};   // zigzag 0..9
+  bool useful = false;
+  for (const auto& c : hd.comps) {
+    if (!c.latched) return;
+    for (int k : kSaved)
+      if (c.quant[k] == 0) return;
+    if (c.coef_bits[0] < 0) return;
+    for (int k = 1; k < 10; ++k) useful = useful || c.coef_bits[k] != 0;
+  }
+  if (useful)
+    unsupported("progressive JPEG whose scans leave coefficient bits unsent (libjpeg smooths "
+                "its blocks)");
+}
+
+// the offset of the marker that ends the entropy-coded data from `i`
+size_t scan_end(const uint8_t* d, size_t n, size_t i) {
+  while (i + 1 < n) {
+    if (d[i] == 0xFF && d[i + 1] != 0 && d[i + 1] != 0xFF && (d[i + 1] < 0xD0 || d[i + 1] > 0xD7))
+      return i;
+    ++i;
+  }
+  return n;
+}
+
+// Walks the markers to EOI (or to the frame header's size only),
+// decoding every scan into the coefficient buffers as it comes.
+void parse(const uint8_t* d, size_t n, Header& hd, bool size_only) {
   if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) malformed("not a JPEG (no SOI marker)");
   size_t i = 2;
-  bool frame = false;
   while (true) {
     while (i < n && d[i] != 0xFF) ++i;   // tolerate bytes between segments
     while (i < n && d[i] == 0xFF) ++i;
-    if (i >= n) malformed("truncated JPEG: no scan");
+    if (i >= n) {
+      if (hd.scans) return;               // no EOI after the last scan
+      malformed("truncated JPEG: no scan");
+    }
     int m = d[i++];
     if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-    if (m == 0xD9) malformed("truncated JPEG: EOI before the scan");
+    if (m == 0xD9) {
+      if (hd.scans) return;
+      malformed("truncated JPEG: EOI before the scan");
+    }
     if (i + 2 > n) malformed("truncated JPEG segment");
     size_t len = be16(d + i);
     if (len < 2 || i + len > n) malformed("truncated JPEG segment");
     const uint8_t* s = d + i + 2;
     size_t sl = len - 2;
-    if (m == 0xC0 || m == 0xC1) {
-      if (sl < 6) malformed("short frame header");
-      if (s[0] != 8) unsupported(std::to_string(s[0]) + "-bit JPEG samples");
-      hd.height = be16(s + 1);
-      hd.width = be16(s + 3);
-      int nf = s[5];
-      if (hd.height == 0 || hd.width == 0)
-        unsupported("JPEG with its height in a DNL marker, or of zero size");
-      if (nf != 1 && nf != 3) unsupported(std::to_string(nf) + "-component JPEG (CMYK or other)");
-      if (sl < 6 + 3 * static_cast<size_t>(nf)) malformed("short frame header");
-      hd.comps.clear();
-      for (int c = 0; c < nf; ++c) {
-        Component comp;
-        comp.id = s[6 + 3 * c];
-        comp.h = s[7 + 3 * c] >> 4;
-        comp.v = s[7 + 3 * c] & 15;
-        comp.tq = s[8 + 3 * c];
-        if (comp.h < 1 || comp.h > 4 || comp.v < 1 || comp.v > 4 || comp.tq > 3)
-          malformed("bad component in the frame header");
-        hd.comps.push_back(comp);
-      }
-      frame = true;
-      if (size_only) return 0;
-    } else if ((m >= 0xC2 && m <= 0xCB && m != 0xC4 && m != 0xC8) || (m >= 0xCD && m <= 0xCF)) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      read_frame(hd, m, s, sl, size_only);
+      if (size_only) return;
+    } else if ((m >= 0xC3 && m <= 0xCB && m != 0xC4 && m != 0xC8) || (m >= 0xCD && m <= 0xCF)) {
       unsupported(sof_name(m));
     } else if (m == 0xC4) {
       size_t k = 0;
@@ -364,117 +702,38 @@ size_t parse(const uint8_t* d, size_t n, Header& hd, bool size_only) {
     } else if (m == 0xDD) {
       if (sl < 2) malformed("short restart interval");
       hd.restart_interval = be16(s);
-    } else if (m == 0xE0) {
-      if (sl >= 5 && std::memcmp(s, "JFIF\0", 5) == 0) hd.jfif = true;
-    } else if (m == 0xEE) {
-      if (sl >= 5 && std::memcmp(s, "Adobe", 5) == 0) hd.adobe = true;
-    } else if (m == 0xDA) {
-      if (!frame) malformed("scan before the frame header");
-      if (sl < 1) malformed("short scan header");
-      int ns = s[0];
-      if (sl < 1 + 2 * static_cast<size_t>(ns) + 3) malformed("short scan header");
-      if (ns != static_cast<int>(hd.comps.size()))
-        unsupported("JPEG with several scans (non-interleaved sequential)");
-      for (int c = 0; c < ns; ++c) {
-        int id = s[1 + 2 * c];
-        Component* comp = nullptr;
-        for (auto& cc : hd.comps)
-          if (cc.id == id) comp = &cc;
-        if (comp == nullptr) malformed("scan names an unknown component");
-        if (comp != &hd.comps[c]) unsupported("JPEG scan in another order than its frame");
-        comp->td = s[2 + 2 * c] >> 4;
-        comp->ta = s[2 + 2 * c] & 15;
-        if (comp->td > 3 || comp->ta > 3) malformed("bad Huffman table id in the scan");
+    } else if (m == 0xE0 && !hd.scans) {
+      // jdmarker.c's examine_app0 / examine_app14 read 14 and 12 bytes
+      if (sl >= 14 && std::memcmp(s, "JFIF\0", 5) == 0) hd.jfif = true;
+    } else if (m == 0xEE && !hd.scans) {
+      if (sl >= 12 && std::memcmp(s, "Adobe", 5) == 0) {
+        hd.adobe = true;
+        hd.adobe_transform = s[11];
       }
-      const uint8_t* t = s + 1 + 2 * ns;
-      if (t[0] != 0 || t[1] != 63 || t[2] != 0) malformed("baseline scan with a spectral selection");
-      return i + len;
+    } else if (m == 0xDA) {
+      if (!hd.sof) malformed("scan before the frame header");
+      if (!hd.scans) check_layout(hd);
+      Scan sc = read_scan(hd, s, sl);
+      decode_scan(d, n, i + len, hd, sc);
+      ++hd.scans;
+      if (!hd.progressive() && sc.ns == static_cast<int>(hd.comps.size()))
+        return;                           // one scan holds the whole image
+      i = scan_end(d, n, i + len);
+      continue;
     }
     i += len;
   }
 }
 
-// the layout this decoder holds to PIL; anything else is refused
-void check_layout(const Header& hd) {
-  if (hd.adobe) unsupported("JPEG with an Adobe colour transform marker (CMYK/Adobe)");
-  if (hd.comps.size() == 3) {
-    const auto& y = hd.comps[0];
-    bool chroma_1x1 = hd.comps[1].h == 1 && hd.comps[1].v == 1 && hd.comps[2].h == 1 &&
-                      hd.comps[2].v == 1;
-    bool luma_ok = (y.h == 1 && y.v == 1) || (y.h == 2 && y.v == 1) || (y.h == 2 && y.v == 2);
-    if (!chroma_1x1 || !luma_ok)
-      unsupported("JPEG sampling layout " + std::to_string(y.h) + "x" + std::to_string(y.v) +
-                  "," + std::to_string(hd.comps[1].h) + "x" + std::to_string(hd.comps[1].v) +
-                  "," + std::to_string(hd.comps[2].h) + "x" + std::to_string(hd.comps[2].v) +
-                  " (the decoder reads 4:4:4, 4:2:2 and 4:2:0)");
-    if (!hd.jfif && y.id == 'R' && hd.comps[1].id == 'G' && hd.comps[2].id == 'B')
-      unsupported("JPEG stored as RGB (no YCbCr transform)");
-  }
-  for (const auto& c : hd.comps) {
-    if (!hd.quant_set[c.tq]) malformed("missing quantization table");
-    if (!hd.dc[c.td].present || !hd.ac[c.ta].present) malformed("missing Huffman table");
-  }
-}
-
-void decode_scan(const uint8_t* d, size_t n, size_t start, Header& hd) {
-  int hmax = 1, vmax = 1;
-  for (const auto& c : hd.comps) {
-    hmax = std::max(hmax, c.h);
-    vmax = std::max(vmax, c.v);
-  }
-  bool single = hd.comps.size() == 1;
-  int mcux, mcuy;
-  if (single) {   // a non-interleaved scan: one block per MCU
-    hd.comps[0].h = hd.comps[0].v = hmax = vmax = 1;
-  }
-  mcux = (hd.width + 8 * hmax - 1) / (8 * hmax);
-  mcuy = (hd.height + 8 * vmax - 1) / (8 * vmax);
+// the IDCT of every block of each component's extent into its plane
+void idct_planes(Header& hd) {
   for (auto& c : hd.comps) {
-    c.bw = mcux * c.h;
-    c.bh = mcuy * c.v;
-    c.plane.assign(static_cast<size_t>(c.bw) * 8 * c.bh * 8, 0);
-    c.dc_pred = 0;
-  }
-  BitReader br{d + start, d + n};
-  int16_t coef[64];
-  int restarts = 0;
-  long total = static_cast<long>(mcux) * mcuy;
-  for (long m = 0; m < total; ++m) {
-    if (hd.restart_interval && m > 0 && m % hd.restart_interval == 0) {
-      br.restart(restarts & 7);
-      ++restarts;
-      for (auto& c : hd.comps) c.dc_pred = 0;
-    }
-    int my = static_cast<int>(m / mcux), mx = static_cast<int>(m % mcux);
-    for (auto& c : hd.comps) {
-      const Huffman& dct = hd.dc[c.td];
-      const Huffman& act = hd.ac[c.ta];
-      int stride = c.bw * 8;
-      for (int v = 0; v < c.v; ++v) {
-        for (int h = 0; h < c.h; ++h) {
-          std::memset(coef, 0, sizeof coef);
-          int s = br.decode(dct);
-          int diff = s ? extend(br.bits(s), s) : 0;
-          c.dc_pred += diff;
-          coef[0] = static_cast<int16_t>(c.dc_pred);
-          for (int k = 1; k < 64; ++k) {
-            int rs = br.decode(act);
-            int r = rs >> 4;
-            s = rs & 15;
-            if (s) {
-              k += r;
-              coef[kNatural[k]] = static_cast<int16_t>(extend(br.bits(s), s));
-            } else {
-              if (r != 15) break;
-              k += 15;
-            }
-          }
-          int by = my * c.v + v, bx = mx * c.h + h;
-          idct_islow(coef, hd.quant[c.tq],
-                     c.plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8, stride);
-        }
-      }
-    }
+    int stride = c.bw * 8;
+    c.plane.assign(static_cast<size_t>(stride) * c.bh * 8, 0);
+    for (int by = 0; by < c.eh; ++by)
+      for (int bx = 0; bx < c.ew; ++bx)
+        idct_islow(c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64, c.quant,
+                   c.plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8, stride);
   }
 }
 
@@ -551,11 +810,27 @@ const ColorTables& tables() {
 
 inline uint8_t clamp255(int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); }
 
+// Pillow's MULDIV255 (ImagingUtils.h): a * b / 255, rounded
+inline int muldiv255(int a, int b) {
+  int t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
+}
+
+// PIL reads CMYK inverted ("CMYK;I", Adobe's convention) and converts it
+// with Convert.c's cmyk2rgb
+inline void cmyk_to_rgb(int c, int m, int y, int k, uint8_t* o) {
+  int nk = k;   // 255 - (255 - k)
+  o[0] = clamp255(nk - muldiv255(255 - c, nk));
+  o[1] = clamp255(nk - muldiv255(255 - m, nk));
+  o[2] = clamp255(nk - muldiv255(255 - y, nk));
+}
+
 void to_rgb(const Header& hd, uint8_t* out) {
   int w = hd.width, h = hd.height;
   const Component& yc = hd.comps[0];
   int ystride = yc.bw * 8;
-  if (hd.comps.size() == 1) {
+  const ColorTables& t = tables();
+  if (hd.space == kGrey) {
     for (int y = 0; y < h; ++y) {
       const uint8_t* in = yc.plane.data() + static_cast<size_t>(y) * ystride;
       uint8_t* o = out + static_cast<size_t>(y) * w * 3;
@@ -563,18 +838,44 @@ void to_rgb(const Header& hd, uint8_t* out) {
     }
     return;
   }
+  if (hd.space == kCMYK || hd.space == kYCCK) {   // four planes at 1x1
+    for (int y = 0; y < h; ++y) {
+      const uint8_t* p[4];
+      for (int c = 0; c < 4; ++c)
+        p[c] = hd.comps[c].plane.data() + static_cast<size_t>(y) * hd.comps[c].bw * 8;
+      uint8_t* o = out + static_cast<size_t>(y) * w * 3;
+      for (int x = 0; x < w; ++x) {
+        int c0 = p[0][x], c1 = p[1][x], c2 = p[2][x], k = p[3][x];
+        if (hd.space == kYCCK) {   // jdcolor.c's ycck_cmyk_convert
+          int l = c0, cb = c1, cr = c2;
+          c0 = clamp255(255 - (l + t.cr_r[cr]));
+          c1 = clamp255(255 - (l + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+          c2 = clamp255(255 - (l + t.cb_b[cb]));
+        }
+        cmyk_to_rgb(c0, c1, c2, k, o + 3 * x);
+      }
+    }
+    return;
+  }
   int ratio_h = yc.h, ratio_v = yc.v;
-  // the chroma planes' real extent: libjpeg's downsampled_width / _height
+  // the other planes' real extent: libjpeg's downsampled_width / _height
   int dw = (w + ratio_h - 1) / ratio_h, dh = (h + ratio_v - 1) / ratio_v;
   int padded = 2 * (dw + 1);
   std::vector<uint8_t> cb(padded), cr(padded);
   std::vector<int> colsum(dw + 1);
-  const ColorTables& t = tables();
   for (int y = 0; y < h; ++y) {
     upsample_row(hd.comps[1], ratio_h, ratio_v, dw, dh, y, w, colsum, cb.data());
     upsample_row(hd.comps[2], ratio_h, ratio_v, dw, dh, y, w, colsum, cr.data());
     const uint8_t* yy = yc.plane.data() + static_cast<size_t>(y) * ystride;
     uint8_t* o = out + static_cast<size_t>(y) * w * 3;
+    if (hd.space == kRGB) {
+      for (int x = 0; x < w; ++x) {
+        o[3 * x] = yy[x];
+        o[3 * x + 1] = cb[x];
+        o[3 * x + 2] = cr[x];
+      }
+      continue;
+    }
     for (int x = 0; x < w; ++x) {
       int l = yy[x], b = cb[x], r = cr[x];
       o[3 * x] = clamp255(l + t.cr_r[r]);
@@ -670,10 +971,15 @@ int smm_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out, int64_t cap,
                     int errlen) {
   try {
     Header hd;
-    size_t start = parse(data, static_cast<size_t>(len), hd, false);
-    check_layout(hd);
-    if (static_cast<int64_t>(hd.width) * hd.height * 3 > cap) malformed("output buffer too small");
-    decode_scan(data, static_cast<size_t>(len), start, hd);
+    {
+      Header size;
+      parse(data, static_cast<size_t>(len), size, true);
+      if (static_cast<int64_t>(size.width) * size.height * 3 > cap)
+        malformed("output buffer too small");
+    }
+    parse(data, static_cast<size_t>(len), hd, false);
+    check_complete(hd);
+    idct_planes(hd);
     to_rgb(hd, out);
     return kOk;
   } catch (const Failure& f) {

@@ -7,7 +7,8 @@
 // * the RIFF container: a simple lossy ("VP8 "), simple lossless ("VP8L")
 //   or extended ("VP8X") file.  ICCP, EXIF, XMP, ALPH and unknown chunks
 //   are skipped (the alpha plane does not change the RGB that
-//   convert("RGB") keeps); an animation is refused with status 1.
+//   convert("RGB") keeps).  Of an animation (ANIM, ANMF), the first frame
+//   on its canvas, as libwebp's WebPAnimDecoder composes frame 0.
 // * VP8L, lossless (RFC 9649): the predictor, cross-colour,
 //   subtract-green and colour-indexing transforms, the colour cache, meta
 //   prefix codes and LZ77 backward references.  Exact by definition.
@@ -37,15 +38,14 @@
 namespace {
 
 constexpr int kOk = 0;
-constexpr int kUnsupported = 1;
 constexpr int kMalformed = 2;
+constexpr int64_t kMaxPixels = 178956970;   // 2 * PIL's Image.MAX_IMAGE_PIXELS
 
 struct Failure {
   int code;
   std::string msg;
 };
 
-[[noreturn]] void unsupported(const std::string& msg) { throw Failure{kUnsupported, msg}; }
 [[noreturn]] void malformed(const std::string& msg) { throw Failure{kMalformed, msg}; }
 
 inline uint32_t le16(const uint8_t* p) { return p[0] | (p[1] << 8); }
@@ -402,7 +402,29 @@ struct Bitstream {
   const uint8_t* data = nullptr;
   size_t size = 0;
   int canvas_w = 0, canvas_h = 0;   // from VP8X, 0 without it
+  bool animated = false;            // the first ANMF frame's bitstream, at its offset
+  int frame_x = 0, frame_y = 0;
 };
+
+// the image chunk ("VP8 " or "VP8L") among the chunks of [pos, end),
+// skipping ALPH and unknown ones; false if there is none
+bool image_chunk(const uint8_t* d, size_t pos, size_t end, Bitstream& bs) {
+  while (end - pos >= 8) {
+    const uint8_t* tag = d + pos;
+    uint32_t size = le32(d + pos + 4);
+    if (size > end - pos - 8) malformed("truncated file: chunk past the end of the data");
+    if (!std::memcmp(tag, "VP8 ", 4) || !std::memcmp(tag, "VP8L", 4)) {
+      bs.lossless = tag[3] == 'L';
+      bs.data = d + pos + 8;
+      bs.size = size;
+      return true;
+    }
+    size_t step = 8 + static_cast<size_t>(size) + (size & 1);
+    if (step > end - pos) malformed("truncated file: chunk padding past the end of the data");
+    pos += step;
+  }
+  return false;
+}
 
 Bitstream parse_container(const uint8_t* d, size_t n) {
   if (n < 12 || std::memcmp(d, "RIFF", 4) != 0 || std::memcmp(d + 8, "WEBP", 4) != 0)
@@ -413,7 +435,7 @@ Bitstream parse_container(const uint8_t* d, size_t n) {
   size_t end = 8 + static_cast<size_t>(riff);   // bytes past the RIFF payload are ignored
   size_t pos = 12;
   Bitstream bs;
-  bool first = true;
+  bool first = true, anim_flag = false, anim_chunk = false;
   while (true) {
     if (end - pos < 8) malformed("truncated file: no VP8 or VP8L chunk");
     const uint8_t* tag = d + pos;
@@ -421,19 +443,34 @@ Bitstream parse_container(const uint8_t* d, size_t n) {
     if (size > end - pos - 8) malformed("truncated file: chunk past the end of the data");
     const uint8_t* body = d + pos + 8;
     if (!std::memcmp(tag, "VP8 ", 4) || !std::memcmp(tag, "VP8L", 4)) {
+      if (anim_flag) malformed("image chunk outside the frames of an animation");
       bs.lossless = tag[3] == 'L';
       bs.data = body;
       bs.size = size;
       return bs;
     }
-    if (!std::memcmp(tag, "ANIM", 4) || !std::memcmp(tag, "ANMF", 4))
-      unsupported("animated webp");
-    if (!std::memcmp(tag, "VP8X", 4)) {
+    if (!std::memcmp(tag, "ANIM", 4)) {
+      if (size < 6) malformed("bad ANIM chunk size");
+      anim_chunk = true;   // its background colour and loop count do not change frame 0
+    } else if (!std::memcmp(tag, "ANMF", 4)) {
+      // libwebp's demux: ANIM first, the VP8X animation flag set, the
+      // frame's size its bitstream's, inside the canvas
+      if (!anim_flag || !anim_chunk) malformed("ANMF chunk outside an animation");
+      if (size < 16) malformed("bad ANMF chunk size");
+      bs.animated = true;
+      bs.frame_x = 2 * static_cast<int>(le24(body));
+      bs.frame_y = 2 * static_cast<int>(le24(body + 3));
+      if (!image_chunk(d, pos + 8 + 16, pos + 8 + size, bs))
+        malformed("ANMF frame without an image chunk");
+      return bs;
+    } else if (!std::memcmp(tag, "VP8X", 4)) {
       if (!first) malformed("VP8X chunk not first");
       if (size != 10) malformed("bad VP8X chunk size");
-      if (body[0] & 0x02) unsupported("animated webp");
+      anim_flag = body[0] & 0x02;
       bs.canvas_w = static_cast<int>(le24(body + 4)) + 1;
       bs.canvas_h = static_cast<int>(le24(body + 7)) + 1;
+      if (static_cast<int64_t>(bs.canvas_w) * bs.canvas_h > kMaxPixels)
+        malformed("canvas of more pixels than PIL opens");
     } else if (first) {
       malformed("unknown first chunk");
     }
@@ -1987,7 +2024,7 @@ void vp8_to_rgb(const VP8Decoder& d, uint8_t* out) {
 }
 
 // the size of the image in a container's bitstream, checked against the
-// VP8X canvas
+// VP8X canvas: equal to it for a still image, inside it for a frame
 void image_size(const Bitstream& bs, int& w, int& h) {
   if (bs.lossless) {
     VP8LDecoder dec(bs.data, bs.size);
@@ -1995,8 +2032,44 @@ void image_size(const Bitstream& bs, int& w, int& h) {
   } else {
     VP8Decoder::frame_size(bs.data, bs.size, w, h);
   }
-  if (bs.canvas_w && (bs.canvas_w != w || bs.canvas_h != h))
+  if (bs.animated) {
+    if (static_cast<int64_t>(bs.frame_x) + w > bs.canvas_w ||
+        static_cast<int64_t>(bs.frame_y) + h > bs.canvas_h)
+      malformed("animation frame outside the canvas");
+  } else if (bs.canvas_w && (bs.canvas_w != w || bs.canvas_h != h)) {
     malformed("VP8X canvas size differs from the image's");
+  }
+}
+
+// the image of a bitstream, w x h x 3 RGB at `out` with rows `stride`
+// bytes apart
+void decode_image(const Bitstream& bs, int w, int h, uint8_t* out, size_t stride) {
+  if (bs.lossless) {
+    VP8LDecoder dec(bs.data, bs.size);
+    dec.header(w, h);
+    std::vector<uint32_t> argb = dec.decode(w, h);
+    for (int y = 0; y < h; ++y) {
+      uint8_t* o = out + y * stride;
+      for (int x = 0; x < w; ++x) {
+        uint32_t p = argb[static_cast<size_t>(y) * w + x];
+        o[3 * x] = static_cast<uint8_t>(p >> 16);
+        o[3 * x + 1] = static_cast<uint8_t>(p >> 8);
+        o[3 * x + 2] = static_cast<uint8_t>(p);
+      }
+    }
+    return;
+  }
+  VP8Decoder dec;
+  dec.decode(bs.data, bs.size);
+  if (stride == static_cast<size_t>(w) * 3) {
+    vp8_to_rgb(dec, out);
+    return;
+  }
+  std::vector<uint8_t> rgb(static_cast<size_t>(w) * h * 3);
+  vp8_to_rgb(dec, rgb.data());
+  for (int y = 0; y < h; ++y)
+    std::memcpy(out + y * stride, rgb.data() + static_cast<size_t>(y) * w * 3,
+                static_cast<size_t>(w) * 3);
 }
 
 void set_error(char* err, int errlen, const std::string& msg) {
@@ -2007,14 +2080,14 @@ void set_error(char* err, int errlen, const std::string& msg) {
 
 extern "C" {
 
-// width and height of a webp file
+// width and height of a webp file (an animation's canvas)
 int smm_webp_size(const uint8_t* data, int64_t len, int32_t* wh, char* err, int errlen) {
   try {
     Bitstream bs = parse_container(data, static_cast<size_t>(len));
     int w, h;
     image_size(bs, w, h);
-    wh[0] = w;
-    wh[1] = h;
+    wh[0] = bs.animated ? bs.canvas_w : w;
+    wh[1] = bs.animated ? bs.canvas_h : h;
     return kOk;
   } catch (const Failure& f) {
     set_error(err, errlen, f.msg);
@@ -2025,28 +2098,23 @@ int smm_webp_size(const uint8_t* data, int64_t len, int32_t* wh, char* err, int 
   }
 }
 
-// decode to height x width x 3 RGB bytes at `out` (cap bytes)
+// decode to height x width x 3 RGB bytes at `out` (cap bytes).  An
+// animation gives its first frame as WebPAnimDecoder composes it: a key
+// frame, decoded straight onto the canvas cleared to transparent black
+// (the ANIM background colour and the frame's blend flag play no part),
+// of which convert("RGB") keeps the colour
 int smm_webp_decode(const uint8_t* data, int64_t len, uint8_t* out, int64_t cap, char* err,
                     int errlen) {
   try {
     Bitstream bs = parse_container(data, static_cast<size_t>(len));
     int w, h;
     image_size(bs, w, h);
-    if (static_cast<int64_t>(w) * h * 3 > cap) malformed("output buffer too small");
-    if (bs.lossless) {
-      VP8LDecoder dec(bs.data, bs.size);
-      dec.header(w, h);
-      std::vector<uint32_t> argb = dec.decode(w, h);
-      for (size_t i = 0; i < argb.size(); ++i) {
-        out[3 * i] = static_cast<uint8_t>(argb[i] >> 16);
-        out[3 * i + 1] = static_cast<uint8_t>(argb[i] >> 8);
-        out[3 * i + 2] = static_cast<uint8_t>(argb[i]);
-      }
-    } else {
-      VP8Decoder dec;
-      dec.decode(bs.data, bs.size);
-      vp8_to_rgb(dec, out);
-    }
+    int cw = bs.animated ? bs.canvas_w : w, ch = bs.animated ? bs.canvas_h : h;
+    if (static_cast<int64_t>(cw) * ch * 3 > cap) malformed("output buffer too small");
+    size_t stride = static_cast<size_t>(cw) * 3;
+    if (bs.animated) std::memset(out, 0, stride * ch);
+    decode_image(bs, w, h, out + bs.frame_y * stride + static_cast<size_t>(bs.frame_x) * 3,
+                 stride);
     return kOk;
   } catch (const Failure& f) {
     set_error(err, errlen, f.msg);

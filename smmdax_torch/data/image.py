@@ -4,9 +4,12 @@ The JAX package decodes with PIL and resizes with ``Image.BILINEAR``; the
 machine with the card has no PIL, and batches must stay byte-identical
 to the JAX package's.  So:
 
-* ``decode_image`` reads JPEG and webp (lossy and lossless) with the
-  native decoders (``data/native.py``, PIL's bytes) and PNG with
-  ``utils.decode_png``; any other format (and an animated webp) raises.
+* ``decode_image`` reads JPEG, PNG and webp with the native decoders
+  (``data/native.py``, PIL's bytes): JPEG baseline or progressive, 8-bit,
+  grey, YCbCr at 4:4:4 / 4:2:2 / 4:2:0, RGB, CMYK and YCCK (other layouts
+  raise ``JPEGUnsupported``, naming their ROADMAP item); PNG of every
+  colour type and bit depth, Adam7 or not; webp lossy or lossless, still
+  or animated (its first frame).  Any other format raises.
 * ``resize_bilinear_pil`` is Pillow's ``ImagingResample`` with the
   bilinear filter: per axis, the triangle filter's support widened by the
   downscale factor, weights normalised in float64 and turned into fixed
@@ -61,8 +64,8 @@ def decode_image(data: bytes) -> Array:
         from smmdax_torch.data.native import decode_jpeg
         return decode_jpeg(data)
     if head[:8] == b"\x89PNG\r\n\x1a\n":
-        from smmdax_torch.utils import decode_png
-        return decode_png(bytes(data))
+        from smmdax_torch.data.native import decode_png
+        return decode_png(data)
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         from smmdax_torch.data.native import decode_webp
         return decode_webp(data)

@@ -1,8 +1,10 @@
 """Build and load the native image libraries (``data/_native/*.cpp``).
 
-Two sources, each its own library: ``jpeg.cpp`` (the JPEG decoder and
-PIL's bilinear resize) and ``webp.cpp`` (the webp decoder, lossless and
-lossy).  Each is compiled with ``g++ -O3 -shared -fPIC`` at first use into
+Three sources, each its own library: ``jpeg.cpp`` (the JPEG decoder and
+PIL's bilinear resize), ``webp.cpp`` (the webp decoder: lossless, lossy,
+and an animation's first frame) and ``png.cpp`` (PNG's filters, Adam7 and
+samples to RGB, after Python's ``zlib`` has inflated the image data).
+Each is compiled with ``g++ -O3 -shared -fPIC`` at first use into
 ``smmdax_torch/_build/`` (listed in ``.gitignore``), under a name hashed
 from the source, the flags and the machine, and bound with ``ctypes``
 (plain C interface).  The compiler writes to a temporary name that
@@ -11,10 +13,10 @@ load half a file.  A ``ctypes`` call releases the GIL: a pool of threads
 decodes side by side.
 
 There is no fallback: if a library cannot be built or loaded, decoding
-raises.  The plain JPEG decoder (``data/jpeg.py``) is the reference the
-tests hold the native one to, never a substitute for it; the webp decoder
-is held to PIL's decodes (live in the tests, as recorded digests on a
-machine without PIL).
+raises.  The plain JPEG and PNG decoders (``data/jpeg.py``,
+``utils.decode_png``) are the references the tests hold the native ones
+to, never substitutes for them; every decoder is held to PIL's decodes
+(live in the tests, as recorded digests on a machine without PIL).
 """
 
 from __future__ import annotations
@@ -34,12 +36,14 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_DIR = os.path.join(PACKAGE_DIR, "data", "_native")
 SOURCE = os.path.join(NATIVE_DIR, "jpeg.cpp")
 WEBP_SOURCE = os.path.join(NATIVE_DIR, "webp.cpp")
+PNG_SOURCE = os.path.join(NATIVE_DIR, "png.cpp")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
 _LIB = None
 _WEBP_LIB = None
+_PNG_LIB = None
 _ERRLEN = 512
 
 
@@ -114,6 +118,20 @@ def webp_library() -> ctypes.CDLL:
         return _WEBP_LIB
 
 
+def png_library() -> ctypes.CDLL:
+    """The loaded PNG decoder, built first if needed."""
+    global _PNG_LIB
+    with _LOCK:
+        if _PNG_LIB is None:
+            lib = _load(PNG_SOURCE, "libpng_decode", "PNG decoder")
+            lib.smm_png_decode.restype = ctypes.c_int
+            i32, ptr = ctypes.c_int, ctypes.c_void_p
+            lib.smm_png_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, i32, i32, i32,
+                                           i32, ptr, ptr, ctypes.c_char_p, i32]
+            _PNG_LIB = lib
+        return _PNG_LIB
+
+
 def _raise(code: int, err) -> None:
     msg = err.value.decode(errors="replace")
     if code == 1:
@@ -144,19 +162,31 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 
 def _raise_webp(code: int, err) -> None:
-    msg = err.value.decode(errors="replace")
-    if code == 1:
-        raise NotImplementedError(f"{msg}: the port decodes still webp images "
-                                  f"(ROADMAP: animated webp)")
-    raise ValueError(f"corrupt webp: {msg}")
+    raise ValueError(f"corrupt webp: {err.value.decode(errors='replace')}")
 
 
 def decode_webp(data: bytes) -> np.ndarray:
-    """webp bytes (lossy or lossless, simple or extended) -> (H, W, 3)
-    uint8 RGB, equal to PIL's ``Image.open(...).convert("RGB")``.  An
-    animation raises ``NotImplementedError``; corrupt data ``ValueError``."""
+    """webp bytes (lossy or lossless, simple or extended, or an animation,
+    whose first frame is read) -> (H, W, 3) uint8 RGB, equal to PIL's
+    ``Image.open(...).convert("RGB")``.  Corrupt data raises
+    ``ValueError``."""
     lib = webp_library()
     return _decode(lib.smm_webp_size, lib.smm_webp_decode, data, _raise_webp)
+
+
+def decode_png(data: bytes, path: str = "PNG data") -> np.ndarray:
+    """PNG bytes (every colour type and bit depth, Adam7 or not) -> (H, W,
+    3) uint8 RGB, equal to PIL's ``Image.open(...).convert("RGB")``.
+    Corrupt data raises ``ValueError``."""
+    from smmdax_torch.utils import png_parts
+    w, h, depth, color, interlace, palette, raw = png_parts(bytes(data), path)
+    lib = png_library()
+    out = np.empty((h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if lib.smm_png_decode(raw, len(raw), w, h, depth, color, interlace, palette.ctypes.data,
+                          out.ctypes.data, err, _ERRLEN):
+        raise ValueError(f"{path}: corrupt PNG: {err.value.decode(errors='replace')}")
+    return out
 
 
 def resize_pil(u8: np.ndarray, size, xcoeffs, ycoeffs) -> np.ndarray:

@@ -17,7 +17,11 @@ gradients and few-colour images, encoded:
   indexing with 8, 4 and 2 pixels per byte), a gradient, RGBA, methods 0
   and 6, and a 256x256 field at 16 levels a channel (the size that
   ``chip_smoke.py`` times);
-* one animated file, which the port refuses.
+* animations, of which the port reads the first frame as PIL shows it:
+  lossy, lossless, with alpha (lossy and lossless), 256x256 (the size that
+  ``chip_smoke.py`` times), and two built here from still frames (a first
+  frame smaller than the canvas at an offset, a non-zero ANIM background,
+  the blend flag on and off).
 
 ``manifest.json`` records, for each file, the SHA-256 of PIL's decoded RGB
 bytes and of the JAX package's ``center_crop_resize`` of them at 64 (the
@@ -32,6 +36,7 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 
 import numpy as np
@@ -74,7 +79,25 @@ LOSSLESS = [
     ("lossless_rgba_31x23.webp", (23, 31), "rgba", dict(lossless=True)),
     ("lossless_levels16_256x256.webp", (256, 256), "proc16", dict(lossless=True)),
 ]
-ANIMATED = "refuse_animated_16x16.webp"
+# animations, whose first frame PIL shows: name, (h, w), image kind, PIL
+# save options; "hand" files are built here (``animation``): a first frame
+# smaller than its canvas at an offset, over a non-zero ANIM background,
+# with the frame's blend flag on or off
+ANIMATED = [
+    ("animated_lossy_16x16.webp", (16, 16), "proc", dict(duration=100, loop=0)),
+    ("animated_lossless_40x30.webp", (30, 40), "proc", dict(lossless=True, duration=80)),
+    ("animated_alpha_lossy_33x29.webp", (29, 33), "rgba", dict(quality=75, duration=80)),
+    ("animated_alpha_lossless_31x23.webp", (23, 31), "rgba", dict(lossless=True, exact=True,
+                                                                 duration=80)),
+    ("animated_lossy_256x256.webp", (256, 256), "proc", dict(quality=40, method=0,
+                                                             duration=80)),
+]
+HAND_ANIMATED = [
+    ("animated_offset_blend_alpha_64x48.webp", (48, 64), "rgba", dict(quality=70, exact=True),
+     (10, 6), 0),
+    ("animated_offset_noblend_lossless_64x48.webp", (48, 64), "rgba",
+     dict(lossless=True, exact=True), (22, 14), 2),
+]
 
 
 def sha(a: np.ndarray) -> str:
@@ -201,6 +224,38 @@ def pil_encode(arr: np.ndarray, **opts) -> bytes:
     return buf.getvalue()
 
 
+def _chunk(tag: bytes, body: bytes) -> bytes:
+    return tag + struct.pack("<I", len(body)) + body + (b"\0" if len(body) & 1 else b"")
+
+
+def _le24(v: int) -> bytes:
+    return struct.pack("<I", v)[:3]
+
+
+def animation(canvas, frames, background=(10, 20, 30, 255)) -> bytes:
+    """An animated webp of ``canvas`` (w, h): VP8X (animation and alpha
+    flags), ANIM with ``background`` (RGBA), and one ANMF per (x, y, still
+    webp, flags) frame, the still file's image chunks (ALPH, VP8 / VP8L)
+    inside it."""
+    cw, ch = canvas
+    body = _chunk(b"VP8X", bytes([0x12, 0, 0, 0]) + _le24(cw - 1) + _le24(ch - 1))
+    r, g, b, a = background
+    body += _chunk(b"ANIM", bytes([b, g, r, a, 0, 0]))
+    for x, y, still, flags in frames:
+        chunks = still[12:]
+        if chunks[:4] == b"VP8X":
+            chunks = chunks[18:]
+        w, h = _still_size(still)
+        body += _chunk(b"ANMF", _le24(x // 2) + _le24(y // 2) + _le24(w - 1) + _le24(h - 1)
+                       + _le24(100) + bytes([flags]) + chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def _still_size(data: bytes) -> tuple:
+    from PIL import Image
+    return Image.open(io.BytesIO(data)).size
+
+
 def main() -> None:
     from PIL import Image
 
@@ -214,13 +269,23 @@ def main() -> None:
             with open(os.path.join(HERE, name), "wb") as f:
                 f.write(data)
             entries.append(dict(name=name, encoder=encoder, options=opts, **pil_hashes(data)))
-    frames = [Image.fromarray(make_image(rng, 16, 16, "proc")) for _ in range(2)]
-    buf = io.BytesIO()
-    frames[0].save(buf, format="WEBP", save_all=True, append_images=frames[1:], duration=100,
-                   loop=0)
-    with open(os.path.join(HERE, ANIMATED), "wb") as f:
-        f.write(buf.getvalue())
-    entries.append(dict(name=ANIMATED, encoder="pil", refuse="NotImplementedError"))
+    for name, (h, w), kind, opts in ANIMATED:
+        frames = [make_image(rng, h, w, kind) for _ in range(2)]
+        frames = [Image.fromarray(a, "RGBA" if a.shape[-1] == 4 else "RGB") for a in frames]
+        buf = io.BytesIO()
+        frames[0].save(buf, format="WEBP", save_all=True, append_images=frames[1:], **opts)
+        data = buf.getvalue()
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(data)
+        entries.append(dict(name=name, encoder="pil", options=opts, **pil_hashes(data)))
+    for name, (h, w), kind, opts, (x, y), flags in HAND_ANIMATED:
+        first = pil_encode(make_image(rng, h // 2, w // 2, kind), **opts)
+        second = pil_encode(make_image(rng, h, w, "proc"), quality=60)
+        data = animation((w, h), [(x, y, first, flags), (0, 0, second, 0)])
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(data)
+        entries.append(dict(name=name, encoder="hand", options=opts, offset=[x, y],
+                            blend=flags & 2 == 0, **pil_hashes(data)))
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump({"generator": "tests/fixtures/port_webp/make_fixtures.py",
                    "files": entries}, f, indent=1)

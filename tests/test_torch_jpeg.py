@@ -3,9 +3,10 @@
 byte for byte: the committed fixtures (``tests/fixtures/port_images``, whose
 manifest of PIL's hashes is regenerated here), a seeded sweep of sizes,
 qualities, subsamplings and restart intervals, native against plain on
-small images; unsupported layouts, unknown formats and animated webp
-raise; a decoder that cannot be built raises in ``make_dataset`` and is
-never replaced."""
+small images; the layouts still refused and unknown formats raise; a
+decoder that cannot be built raises in ``make_dataset`` and is never
+replaced.  Progressive, CMYK / YCCK and RGB files beyond the fixtures:
+``tests/test_torch_jpeg_layouts.py``."""
 
 import hashlib
 import io
@@ -75,7 +76,9 @@ def test_fixture_decodes_to_pils_bytes(entry):
     assert _sha(got) == entry["rgb_sha256"]
     assert _sha(timage.center_crop_resize(got, 160, crop=160)) == entry["crop160_sha256"]
     assert _sha(timage.center_crop_resize(got, 64)) == entry["crop64_sha256"]
-    if entry["width"] * entry["height"] <= 256 * 256:
+    # the plain decoder on baseline files up to 256x256, progressive up to 64x64
+    limit = 64 * 64 if entry["options"].get("progressive") else 256 * 256
+    if entry["width"] * entry["height"] <= limit:
         np.testing.assert_array_equal(plain.decode_jpeg(data), got)
 
 
@@ -83,7 +86,9 @@ def test_fixture_decodes_to_pils_bytes(entry):
 @pytest.mark.parametrize("decode", [native.decode_jpeg, plain.decode_jpeg,
                                     timage.decode_image], ids=["native", "plain", "dispatch"])
 def test_unsupported_layouts_raise(entry, decode):
-    with pytest.raises(NotImplementedError, match="ROADMAP: progressive JPEG"):
+    """Lossless, hierarchical, arithmetic, 12-bit, 4:4:0 and a progressive
+    file with unsent bits raise JPEGUnsupported, naming their ROADMAP item."""
+    with pytest.raises(plain.JPEGUnsupported, match="ROADMAP: JPEG layouts still refused"):
         decode(_bytes(entry["name"]))
 
 
@@ -158,8 +163,8 @@ def test_corrupt_data_decodes_or_raises():
 
 
 def test_webp_and_unknown_formats_raise():
-    """webp decodes now (to PIL's bytes); unknown formats and animated webp
-    still raise, as does a corrupt JPEG."""
+    """webp decodes (to PIL's bytes), an animation to its first frame;
+    unknown formats still raise, as does a corrupt JPEG."""
     buf = io.BytesIO()
     arr = np.random.default_rng(5).integers(0, 256, (8, 8, 3), dtype=np.uint8)
     Image.fromarray(arr).save(buf, format="WEBP")
@@ -169,8 +174,7 @@ def test_webp_and_unknown_formats_raise():
     anim = io.BytesIO()
     frames = [Image.fromarray(arr), Image.fromarray(255 - arr)]
     frames[0].save(anim, format="WEBP", save_all=True, append_images=frames[1:], duration=50)
-    with pytest.raises(NotImplementedError, match="ROADMAP: animated webp"):
-        timage.decode_image(anim.getvalue())
+    np.testing.assert_array_equal(timage.decode_image(anim.getvalue()), _pil(anim.getvalue()))
     with pytest.raises(ValueError, match="corrupt JPEG"):
         native.decode_jpeg(b"\xff\xd8\xff")
 

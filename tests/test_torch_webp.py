@@ -1,10 +1,11 @@
 """The port's webp decoder (native ``data/_native/webp.cpp``) against PIL,
 byte for byte: the committed fixtures (``tests/fixtures/port_webp``, whose
 manifest of PIL's hashes is checked here), a derandomised property over
-PIL-encoded random sizes, lossy and lossless; truncated and bit-flipped
-files raise ``ValueError`` or decode and never crash; an animation is
-refused; the LSUN source, ``make_dataset`` and the packing tool on webp
-LMDBs equal the JAX package's bytes.
+PIL-encoded random sizes, lossy and lossless; animations to their first
+frame (PIL-encoded, and built here with a smaller first frame at an
+offset); truncated and bit-flipped files raise ``ValueError`` or decode
+and never crash; the LSUN source, ``make_dataset`` and the packing tool
+on webp LMDBs equal the JAX package's bytes.
 
     PYTHONPATH=. python tests/test_torch_webp.py
 
@@ -28,7 +29,8 @@ from smmdax_torch.data import native  # noqa: E402
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "port_webp")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     MANIFEST = json.load(_f)["files"]
-READ = [e for e in MANIFEST if "refuse" not in e]
+READ = MANIFEST
+ANIMATED = [e["name"] for e in MANIFEST if e["name"].startswith("animated")]
 
 
 def _sha(a) -> str:
@@ -67,19 +69,25 @@ def _generator():
 def test_manifest_holds_pils_hashes():
     """The recorded hashes are PIL's own here (what the machine
     without PIL holds the port to); the generator lists every file, and
-    the files are what they claim: VP8X with ALPH, 2/4/8 partitions."""
+    the files are what they claim: VP8X with ALPH, 2/4/8 partitions,
+    two-frame animations with ANIM and ANMF."""
     gen = _generator()
-    listed = [n for n, *_ in gen.LOSSY + gen.LOSSY_LIB + gen.LOSSLESS] + [gen.ANIMATED]
+    listed = [n for n, *_ in gen.LOSSY + gen.LOSSY_LIB + gen.LOSSLESS + gen.ANIMATED
+              + gen.HAND_ANIMATED]
     assert [e["name"] for e in MANIFEST] == listed
     for e in READ:
         got = gen.pil_hashes(_bytes(e["name"]))
         assert {k: e[k] for k in got} == got, e["name"]
-    assert Image.open(io.BytesIO(_bytes(gen.ANIMATED))).n_frames == 2
     alpha = _bytes("lossy_alpha_exact_33x29.webp")
     assert alpha[12:16] == b"VP8X" and b"ALPH" in alpha and b"VP8 " in alpha
     for e in READ:
-        assert _bytes(e["name"])[12:16] == (b"VP8L" if e["name"].startswith("lossless") else
-                                            b"VP8X" if "alpha" in e["name"] else b"VP8 ")
+        data = _bytes(e["name"])
+        if e["name"] in ANIMATED:
+            assert data[12:16] == b"VP8X" and data[20] & 0x02 and b"ANIM" in data
+            assert data.count(b"ANMF") == 2 == Image.open(io.BytesIO(data)).n_frames
+            continue
+        assert data[12:16] == (b"VP8L" if e["name"].startswith("lossless") else
+                               b"VP8X" if "alpha" in e["name"] else b"VP8 ")
     assert sum(os.path.getsize(os.path.join(FIXTURES, f)) for f in os.listdir(FIXTURES)) < 200_000
 
 
@@ -94,9 +102,58 @@ def test_fixture_decodes_to_pils_bytes(entry):
     np.testing.assert_array_equal(timage.decode_image(data), got)
 
 
-def test_animated_webp_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP: animated webp"):
-        timage.decode_image(_bytes("refuse_animated_16x16.webp"))
+def test_animated_first_frame_at_an_offset():
+    """A first frame smaller than its canvas, at an offset, over a non-zero
+    ANIM background: the canvas is transparent black around it, whether
+    the frame's blend flag is on (with alpha) or off (lossless)."""
+    for e in MANIFEST:
+        if "offset" not in e:
+            continue
+        got = native.decode_webp(_bytes(e["name"]))
+        (x, y), (w, h) = e["offset"], (e["width"] // 2, e["height"] // 2)
+        assert got.shape == (e["height"], e["width"], 3)
+        inside = np.zeros(got.shape[:2], bool)
+        inside[y:y + h, x:x + w] = True
+        assert not got[~inside].any() and got[inside].any(), e["name"]
+
+
+def _animation(frames, **opts) -> bytes:
+    buf = io.BytesIO()
+    frames = [Image.fromarray(a, "RGBA" if a.shape[-1] == 4 else "RGB") for a in frames]
+    frames[0].save(buf, format="WEBP", save_all=True, append_images=frames[1:], **opts)
+    return buf.getvalue()
+
+
+def test_random_animations_decode_as_pil():
+    """PIL-encoded two- and three-frame animations, sizes 1-48, lossy and
+    lossless, with and without alpha; and animations built from still
+    frames at random offsets in a larger canvas with the blend flag on or
+    off: the port gives PIL's first frame."""
+    hyp = pytest.importorskip("hypothesis")
+    st = hyp.strategies
+    gen = _generator()
+
+    @hyp.settings(max_examples=25, derandomize=True, deadline=None, database=None)
+    @hyp.given(h=st.integers(1, 48), w=st.integers(1, 48), lossless=st.booleans(),
+               alpha=st.booleans(), frames=st.integers(2, 3), built=st.booleans(),
+               dx=st.integers(0, 20), dy=st.integers(0, 20), flags=st.sampled_from([0, 2]),
+               seed=st.integers(0, 2**31))
+    def check(h, w, lossless, alpha, frames, built, dx, dy, flags, seed):
+        rng = np.random.default_rng(seed)
+        arrs = [rng.integers(0, 256, (h, w, 4 if alpha else 3), dtype=np.uint8)
+                for _ in range(frames)]
+        opts = dict(lossless=lossless, quality=60)
+        if built:
+            first = gen.pil_encode(arrs[0], exact=True, **opts)
+            canvas = (w + 2 * dx + 1, h + 2 * dy + 1)
+            data = gen.animation(canvas, [(2 * dx, 2 * dy, first, flags),
+                                          (0, 0, gen.pil_encode(
+                                              np.zeros(canvas[::-1] + (3,), np.uint8)), 0)])
+        else:
+            data = _animation(arrs, duration=50, **opts)
+        np.testing.assert_array_equal(native.decode_webp(data), _pil(data))
+
+    check()
 
 
 def test_random_images_decode_as_pil():
@@ -135,13 +192,22 @@ def test_every_truncation_raises_or_decodes(name):
         native.decode_webp(data[:len(data) // 2])
 
 
+@pytest.mark.parametrize("name", ["animated_lossy_16x16.webp",
+                                  "animated_offset_noblend_lossless_64x48.webp"])
+def test_every_truncation_of_an_animation_raises_or_decodes(name):
+    data = _bytes(name)
+    for n in range(len(data)):
+        _raises_or_decodes(data[:n])
+
+
 def test_bit_flips_raise_or_decode():
-    """200 seeded single-bit flips over lossy, lossless and extended files
-    (container, headers and entropy-coded data alike)."""
+    """300 seeded single-bit flips over lossy, lossless, extended and
+    animated files (container, headers and entropy-coded data alike)."""
     rng = np.random.default_rng(10)
     names = ["lossy_q50_m0_61x47.webp", "lossy_parts4_64x96.webp", "lossy_alpha_exact_33x29.webp",
-             "lossless_16colours_45x33.webp", "lossless_proc_m0_50x40.webp"]
-    for i in range(200):
+             "lossless_16colours_45x33.webp", "lossless_proc_m0_50x40.webp",
+             "animated_alpha_lossy_33x29.webp", "animated_offset_blend_alpha_64x48.webp"]
+    for i in range(300):
         data = bytearray(_bytes(names[i % len(names)]))
         pos = int(rng.integers(0, len(data)))
         data[pos] ^= 1 << int(rng.integers(0, 8))
