@@ -7,13 +7,15 @@
     python3 chip_smoke.py --only inception
     python3 chip_smoke.py --only formats
     python3 chip_smoke.py --only dryrun
+    python3 chip_smoke.py --only bench
     python3 chip_smoke.py --tree DIR --only decoders
 
 (The second form profiles the bf16 steps of phases 3 and 4 of the
 ``smmdax_torch`` in DIR, e.g. an earlier commit unpacked by ``git
 archive``, to compare its kernels' device time with this tree's.  The
 third runs phase 9 alone, the fourth phase 10, the fifth phase 11, the
-sixth phase 12.  The last times this tree's baseline JPEG decoder against
+sixth phase 12, the seventh phase 13 with its fresh processes (c).  The
+last times this tree's baseline JPEG decoder against
 DIR's, both built in one process and run by turns on this tree's
 fixtures, without building the kernels.)
 
@@ -186,7 +188,23 @@ Phases, each fatal on failure:
    on the caller's axis; each of the four kernels launched in (b) and in
    each rank of (c).  (b), and (c)'s launcher with two cards, run in this
    process, so the dry run's SIGTERM / SIGINT / SIGALRM handler is this
-   process's while they run.
+   process's while they run;
+13. the measurement layer (``smmdax_torch.bench`` and its tools): (a)
+   ``macro_step_flops`` of the bench's flagship (B 64, 5 + 1) and
+   ``sample_flops`` of 2,048 samples at B 512 counted on the card, timed,
+   each equal to the CPU's count recorded here at rel 1e-6; (b)
+   ``bench.main`` in this process with its windows cut (headline
+   device-resident K 16 in 3 windows of 16 macro-steps, sampling at B 512,
+   host-fed K 4 in 2 windows of 16, no sweeps): the headline and every
+   window positive, every mfu in (0, 1.05], ``flops_per_macro_step`` equal
+   to (a), ``skipped_arms`` empty, and kernels 1-2 launched 18 / 17 times
+   per macro-step it trained; (c) with ``--only bench`` only, in fresh
+   processes: ``python -m smmdax_torch.bench`` unchanged to its end with
+   every JSON line parsed, a SIGTERM after its first JSON line (exit 0, the
+   signal in the last line's ``skipped_arms``), ``python -m
+   smmdax_torch.tools.bench_large --quick`` and ``python -m
+   smmdax_torch.tools.profile_ablation --batch 64 --passes 2``, every
+   number beside the card's name and power limit.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -3483,6 +3501,241 @@ def run_dryrun(tmp: str, results: dict, tree: str) -> dict:
     return dict(entry=entry, one_rank=one, two_ranks=two)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the measurement layer (smmdax_torch.bench and its tools)
+
+
+# The FLOP counts of the bench's flagship on the CPU (torch 2.13.0), the
+# card's must equal them:  python -c "from smmdax_torch import bench;
+# from smmdax_torch.train import macro_step_flops as m, sample_flops as s;
+# c = bench._flagship_cfg(); print(m(c, 5, 1, 'cpu'),
+# s(bench._flagship_cfg(512), 2048, 'cpu'))"   (~16 s on the CPU)
+FLAGSHIP_FLOPS_CPU = 3855678525440.0        # per macro-step, B 64, 5 + 1
+SAMPLE_FLOPS_CPU = 6525129064448.0          # 2,048 samples at B 512
+FLOPS_RTOL = 1e-6
+MFU_MAX = 1.05
+# (b) the bench in this process: its constants cut, the sweeps left out
+BENCH_PHASE_CONSTANTS = dict(HEADLINE_WINDOWS=3, HEADLINE_STEPS_PER_WINDOW=16,
+                             N_WINDOWS=2, STEPS_PER_WINDOW=16, WARMUP_STEPS=1,
+                             BATCH_SWEEP=(), DISPATCH_SWEEP=())
+BENCH_PER_MACRO_STEP = {"pair_sum": 18, "pair_sum_grad_a": 17}   # as phase 3's
+BENCH_TIMEOUT_S = 1800    # (c): the whole bench in a fresh process
+TOOL_TIMEOUT_S = 900
+
+
+def _bench_macro_steps(bench) -> int:
+    """Training macro-steps the bench's arms run with its constants as they
+    stand (the sampling arm trains none): the device-resident arm's two
+    warm-up dispatches, its settle window of two and its timed windows of
+    n dispatches, the host-fed arm's warm-up dispatches and windows, the
+    batch sweep's two warm-up and two timed windows per point, and the
+    dispatch sweep's warm-up and two windows per point."""
+    k = bench.HEADLINE_K
+    n = max(1, bench.HEADLINE_STEPS_PER_WINDOW // k)
+    steps = k * (2 + 2 * n + bench.HEADLINE_WINDOWS * n)
+    steps += bench.HOST_K * bench.WARMUP_STEPS
+    steps += bench.N_WINDOWS * (bench.STEPS_PER_WINDOW // bench.HOST_K) * bench.HOST_K
+    for b in bench.BATCH_SWEEP:
+        steps += bench.HOST_K * (2 + 2 * max(2, bench.STEPS_PER_WINDOW * 64 // b // bench.HOST_K))
+    for kd in bench.DISPATCH_SWEEP:
+        steps += kd * bench.WARMUP_STEPS + 2 * (bench.STEPS_PER_WINDOW // kd) * kd
+    return steps
+
+
+def _check_bench_line(line: dict, arms: tuple, label: str) -> None:
+    """The bench's last JSON line: a positive headline with positive
+    windows, every mfu in (0, MFU_MAX], the arms run and none skipped."""
+    if not line.get("value") or line["value"] <= 0 or not all(w > 0 for w in line["windows"]):
+        fail(f"{label}: headline {line.get('value')}, windows {line.get('windows')}")
+    mfus = [line.get("mfu")] + [line[a].get("mfu") for a in arms if a in ("sampling", "host_fed")]
+    if not all(m is not None and 0 < m <= MFU_MAX for m in mfus):
+        fail(f"{label}: mfu {mfus} outside (0, {MFU_MAX}]")
+    missing = [a for a in arms if a not in line]
+    if missing or line.get("skipped_arms") != []:
+        fail(f"{label}: arms {missing} missing, skipped {line.get('skipped_arms')}")
+
+
+def check_flop_counts(results: dict) -> float:
+    """(a) ``macro_step_flops`` and ``sample_flops`` of the bench's flagship
+    on the card, timed, each equal to the CPU's count at FLOPS_RTOL."""
+    from smmdax_torch import bench
+    from smmdax_torch.train import macro_step_flops, sample_flops
+    t0 = time.perf_counter()
+    flops = macro_step_flops(bench._flagship_cfg(), 5, 1, "cuda")
+    step_s = time.perf_counter() - t0
+    n = 4 * bench.SAMPLING_BATCH
+    t0 = time.perf_counter()
+    sflops = sample_flops(bench._flagship_cfg(bench.SAMPLING_BATCH), n, "cuda")
+    sample_s = time.perf_counter() - t0
+    for what, got, want in (("macro_step_flops", flops, FLAGSHIP_FLOPS_CPU),
+                            ("sample_flops", sflops, SAMPLE_FLOPS_CPU)):
+        if abs(got - want) > FLOPS_RTOL * want:
+            fail(f"{what} on the card {got!r} vs {want!r} on the CPU")
+    results["bench"] = dict(flops_per_macro_step=flops, count_s=step_s,
+                            sample_flops=sflops, sample_count_s=sample_s)
+    log(f"flop counts on the card = the CPU's: {flops:.6e} per flagship macro-step "
+        f"(counted in {step_s:.2f} s), {sflops:.6e} for {n} samples at B "
+        f"{bench.SAMPLING_BATCH} ({sflops / n:.4e} per image, {sample_s:.2f} s)")
+    return flops
+
+
+def run_bench_in_process(flops: float, results: dict) -> dict:
+    """(b) ``bench.main`` in this process with BENCH_PHASE_CONSTANTS: its
+    JSON lines parsed, gated by ``_check_bench_line``, its
+    ``flops_per_macro_step`` equal to (a), and kernels 1-2 launched
+    BENCH_PER_MACRO_STEP times per macro-step it trained.  Returns the
+    launches."""
+    import io
+    from smmdax_torch import bench
+    saved = {k: getattr(bench, k) for k in BENCH_PHASE_CONSTANTS}
+    for k, v in BENCH_PHASE_CONSTANTS.items():
+        setattr(bench, k, v)
+    try:
+        steps = _bench_macro_steps(bench)
+        buf = io.StringIO()
+        counters = _zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in counters}
+    finally:
+        for k, v in saved.items():
+            setattr(bench, k, v)
+    out = buf.getvalue().splitlines()
+    for line in out:
+        if not line.startswith("{"):
+            log(f"  bench| {line}")
+    lines = [json.loads(line) for line in out if line.startswith("{")]
+    if not lines or any(line["value"] != lines[0]["value"] for line in lines):
+        fail(f"bench in process: JSON lines {lines}")
+    last = lines[-1]
+    _check_bench_line(last, ("device_resident", "sampling", "host_fed"), "bench in process")
+    if last["flops_per_macro_step"] != flops:
+        fail(f"bench in process: flops_per_macro_step {last['flops_per_macro_step']} "
+             f"vs {flops} counted in (a)")
+    want = {k: n * steps for k, n in BENCH_PER_MACRO_STEP.items()}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"bench in process: launches {launches}, want {want} over {steps} macro-steps")
+    card = card_line()
+    results["bench"].update(in_process=last, wall_s=wall, macro_steps=steps,
+                            launches=launches, card=card)
+    log(f"bench in process ({wall:.1f} s, {steps} macro-steps): device-resident K "
+        f"{bench.HEADLINE_K} {last['value']} images/s (min {last['min']}, max {last['max']}, "
+        f"mfu {last['mfu']}, {last['tflops_per_sec']} TFLOP/s); host-fed K {bench.HOST_K} "
+        f"{last['host_fed']}; sampling B {bench.SAMPLING_BATCH} {last['sampling']}; "
+        f"launches {launches} = {BENCH_PER_MACRO_STEP} per macro-step; {card}")
+    return launches
+
+
+def _python_m(tree: str, args: list, timeout: int) -> tuple:
+    """``python -m ARGS`` in a fresh process from ``tree``, which must exit
+    0: (stdout lines, JSON lines, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m"] + args, cwd=tree, capture_output=True,
+                          text=True, timeout=timeout, env=dict(os.environ, PYTHONPATH=tree))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        fail(f"python -m {' '.join(args)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return lines, [json.loads(line) for line in lines if line.strip().startswith("{")], wall
+
+
+def run_bench_process(tree: str, results: dict) -> None:
+    """(c) ``python -m smmdax_torch.bench`` unchanged in a fresh process to
+    its end, every JSON line parsed, the last with every arm and
+    ``skipped_arms == []``."""
+    lines, emitted, wall = _python_m(tree, ["smmdax_torch.bench"], BENCH_TIMEOUT_S)
+    if not emitted or any(e["value"] != emitted[0]["value"] for e in emitted):
+        fail(f"bench: JSON lines {emitted}")
+    last = emitted[-1]
+    _check_bench_line(last, ("device_resident", "sampling", "host_fed", "batch_sweep",
+                             "dispatch_sweep"), "bench")
+    card = card_line()
+    results["bench"]["process"] = dict(last=last, wall_s=wall, card=card)
+    for line in lines:
+        if not line.startswith("{"):
+            log(f"  bench| {line}")
+    log(f"bench (fresh process, {wall:.1f} s): {json.dumps(last)}; {card}")
+
+
+def check_bench_sigterm(tree: str, results: dict) -> None:
+    """(c) a SIGTERM sent to ``python -m smmdax_torch.bench`` once its first
+    JSON line is out: exit 0, and a last JSON line whose ``skipped_arms``
+    names the signal."""
+    import signal
+    proc = subprocess.Popen([sys.executable, "-m", "smmdax_torch.bench"], cwd=tree,
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+                            env=dict(os.environ, PYTHONPATH=tree))
+    try:
+        lines = []
+        t0 = time.perf_counter()
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("{"):
+                break
+        first = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        lines += proc.stdout.readlines()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    emitted = [json.loads(line) for line in lines if line.strip().startswith("{")]
+    want = f"<signal {int(signal.SIGTERM)} "
+    if rc != 0 or len(emitted) < 2 or not any(
+            s.startswith(want) for s in emitted[-1]["skipped_arms"]):
+        fail(f"bench SIGTERM after the headline: exit {rc}, JSON lines {emitted}")
+    results["bench"]["sigterm"] = dict(rc=rc, first_line_s=first,
+                                       skipped_arms=emitted[-1]["skipped_arms"])
+    log(f"bench SIGTERM after the first JSON line ({first:.1f} s): exit {rc}, last line's "
+        f"skipped_arms {emitted[-1]['skipped_arms']}")
+
+
+def run_bench_tools(tree: str, results: dict) -> None:
+    """(c) ``python -m smmdax_torch.tools.bench_large --quick`` (four rows,
+    two with a host-fed row) and ``python -m
+    smmdax_torch.tools.profile_ablation --batch 64 --passes 2`` (seven
+    rows), every row positive with an mfu in (0, MFU_MAX]."""
+    card = card_line()
+    _, rows, wall = _python_m(tree, ["smmdax_torch.tools.bench_large", "--quick"],
+                              TOOL_TIMEOUT_S)
+    arms = [r["on_device_data"] for r in rows] + [r["tunneled_u8"] for r in rows
+                                                  if "tunneled_u8" in r]
+    if len(rows) != 4 or len(arms) != 6 or not all(a["images_per_sec"] > 0 for a in arms) \
+            or not all(0 < r["on_device_data"].get("mfu", 0) <= MFU_MAX for r in rows):
+        fail(f"bench_large --quick: {rows}")
+    results["bench"]["bench_large"] = dict(rows=rows, wall_s=wall, card=card)
+    for r in rows:
+        log(f"bench_large {json.dumps(r)}; {card}")
+    log(f"bench_large --quick: {wall:.1f} s")
+    _, rows, wall = _python_m(tree, ["smmdax_torch.tools.profile_ablation", "--batch", "64",
+                                     "--passes", "2"], TOOL_TIMEOUT_S)
+    if len(rows) != 7 or not all(r["macro_step_ms"] > 0 and 0 < r.get("mfu", 0) <= MFU_MAX
+                                 for r in rows):
+        fail(f"profile_ablation: {rows}")
+    results["bench"]["profile_ablation"] = dict(rows=rows, wall_s=wall, card=card)
+    for r in rows:
+        log(f"profile_ablation {json.dumps(r)}; {card}")
+    log(f"profile_ablation --batch 64 --passes 2: {wall:.1f} s")
+
+
+def run_bench(results: dict, tree: str, processes: bool) -> dict:
+    """Phase 13 (see the module docstring): (a) and (b), and with
+    ``processes`` (``--only bench``) (c).  Returns (b)'s launches."""
+    t0 = time.perf_counter()
+    flops = check_flop_counts(results)
+    launches = run_bench_in_process(flops, results)
+    if processes:
+        run_bench_process(tree, results)
+        check_bench_sigterm(tree, results)
+        run_bench_tools(tree, results)
+    results["bench"]["phase_s"] = time.perf_counter() - t0
+    log(f"bench phase: {results['bench']['phase_s']:.1f} s")
+    return launches
+
+
 def profile_only(results: dict) -> int:
     """The timed and profiled bf16 macro-steps of phases 3 and 4 alone."""
     import torch
@@ -3587,7 +3840,7 @@ def main(argv=None) -> int:
                         help="import smmdax_torch from this checkout (default: beside "
                              "this script), e.g. an earlier commit unpacked by git archive")
     parser.add_argument("--only", choices=("profile", "ranks", "inception", "formats",
-                                           "dryrun", "decoders"),
+                                           "dryrun", "bench", "decoders"),
                         default=None,
                         help="decoders: no CUDA build, only this tree's baseline JPEG "
                              "decoder against --tree's, interleaved in one process; "
@@ -3597,7 +3850,9 @@ def main(argv=None) -> int:
                              "ranks: build, then phase 9 alone, and no ok line; "
                              "inception: build, then phase 10 alone, and no ok line; "
                              "formats: build, then phase 11 alone, and no ok line; "
-                             "dryrun: build, then phase 12 alone, and no ok line")
+                             "dryrun: build, then phase 12 alone, and no ok line; "
+                             "bench: build, then phase 13 with the bench and its tools "
+                             "in fresh processes, and no ok line")
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
     # cuBLAS reads it when CUDA starts: phase 5 runs deterministic
@@ -3635,6 +3890,11 @@ def main(argv=None) -> int:
     results["build_s"] = secs
     if args.only == "profile":
         return profile_only(results)
+    if args.only == "bench":
+        run_bench(results, tree, processes=True)
+        write_results(args.out, results)
+        print(card_line(), flush=True)
+        return 0
     if args.only in ("ranks", "inception", "formats", "dryrun"):
         phase = {"ranks": run_ranks, "inception": run_inception, "formats": run_formats,
                  "dryrun": run_dryrun}
@@ -3732,6 +3992,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         dryrun = run_dryrun(tmp, results, tree)
 
+    # phase 13
+    bench = run_bench(results, tree, processes=False)
+
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
 
@@ -3794,6 +4057,8 @@ def main(argv=None) -> int:
         kern["entry_launches_per_forward"] = dryrun["entry"][counter]
         kern["dryrun_launches"] = {"one_rank": dryrun["one_rank"][counter],
                                    "two_ranks_rank0": dryrun["two_ranks"][counter]}
+        # phase 13: the bench's device-resident, sampling and host-fed arms
+        kern["bench_launches"] = bench[counter]
     card = card_line()
     results.update(kernels=kernels, card=card)
     write_results(args.out, results)
