@@ -8,14 +8,15 @@
     python3 chip_smoke.py --only formats
     python3 chip_smoke.py --only dryrun
     python3 chip_smoke.py --only bench
+    python3 chip_smoke.py --only assets
     python3 chip_smoke.py --tree DIR --only decoders
 
 (The second form profiles the bf16 steps of phases 3 and 4 of the
 ``smmdax_torch`` in DIR, e.g. an earlier commit unpacked by ``git
 archive``, to compare its kernels' device time with this tree's.  The
 third runs phase 9 alone, the fourth phase 10, the fifth phase 11, the
-sixth phase 12, the seventh phase 13 with its fresh processes (c).  The
-last times this tree's baseline JPEG decoder against
+sixth phase 12, the seventh phase 13 with its fresh processes (c), the
+eighth phase 14 at the asset tool's defaults.  The last times this tree's baseline JPEG decoder against
 DIR's, both built in one process and run by turns on this tree's
 fixtures, without building the kernels.)
 
@@ -204,7 +205,31 @@ Phases, each fatal on failure:
    signal in the last line's ``skipped_arms``), ``python -m
    smmdax_torch.tools.bench_large --quick`` and ``python -m
    smmdax_torch.tools.profile_ablation --batch 64 --passes 2``, every
-   number beside the card's name and power limit.
+   number beside the card's name and power limit;
+14. the asset tools (``smmdax_torch.tools.make_assets`` and ``parity_day``):
+   (a) the native JPEG encoder built with g++ from the checkout (its build
+   time printed), every case of ``tests/fixtures/port_jpeg_encode``'s
+   manifest (``make_assets`` fields and flat, saturated, checkerboard and
+   noise fields, qualities 1-100) at PIL's recorded SHA-256, the plain
+   encoder's bytes equal to it up to 64x64, every file read back by the
+   native decoder, ms per image at 178x218 q88 and 256x256 q85 on 1 and 8
+   threads; (b) ``python -m smmdax_torch.tools.make_assets`` in a fresh
+   process: CIFAR-10 at its full 50,000, CelebA 2,500, LSUN 512, ImageNet-64
+   1,000 and MNIST 1,000 (every default, 10,000-50,000, with ``--only
+   assets``), seconds and bytes per format, each format's digest equal to
+   the JAX tool's recorded in the same manifest; (c)
+   ``exp/cifar10_sn_smmd_resnet.sh``'s flags at full width through the
+   trainer from the pickles' 50,000 images, 16 macro-steps without warm-up
+   or events, kernels 1-2 launched 18 / 17 times per macro-step, images/s
+   and host ms per macro-batch against ms per macro-step (with ``--only
+   assets`` also ``celeba160`` from the 10,000 JPEGs, ``lsun64`` from the
+   10,000-record JPEG LMDB and the ResNet at 64 px from the ImageNet-64 npz,
+   and one decode pass over the CelebA files and the LSUN records on 8
+   threads); the MNIST idx file read back at c_dim 1; (d) the port's random
+   Inception weights as ``inception_v3.npz`` beside the assets and ``python
+   -m smmdax_torch.tools.parity_day --data_dir DIR --json`` in a fresh
+   process: exit 0, the weights, the four datasets and the CIFAR-10 FID/KID
+   self-check PASS, FID and KID finite.
 
 The last lines are a ``{"kernels": [...]}`` line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -3825,6 +3850,308 @@ def decoders_only(tree: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the asset tools (make_assets with the JPEG encoder, parity_day)
+
+
+ENCODE_FIXTURE_DIR = os.path.join("tests", "fixtures", "port_jpeg_encode")
+ENCODE_PLAIN_MAX = 64 * 64           # pixels of the cases the plain encoder also runs
+ENCODE_TIMING_IMAGES = 256
+ENCODE_TIMINGS = (("178x218 q88 (CelebA)", 218, 178, 88), ("256x256 q85 (LSUN)", 256, 256, 85))
+# the line each format prints at its end (the CelebA counts are multiples of
+# 2,500, so that its progress line is its last), in the order the tool writes them
+ASSET_END_LINES = (("cifar", "  cifar batch 5/5"), ("celeba", "  celeba {celeba_n}/{celeba_n} "),
+                   ("lsun", "  lsun {lsun_n} records"),
+                   ("imagenet64", "  imagenet64 shard 5/5"), ("mnist", "  mnist {mnist_n} "))
+ASSET_DIRS = {"cifar": "cifar-10-batches-py", "celeba": "celeba", "lsun": "lsun",
+              "imagenet64": "imagenet64", "mnist": "mnist"}
+MAKE_ASSETS_TIMEOUT_S = 900
+PARITY_DAY_TIMEOUT_S = 600
+# (c): the runs from the assets, cut to ASSET_STEPS macro-steps (K 4, logged
+# every 4, no warm-up: 5 critic updates each, kernels 1-2 launched 18 / 17
+# times per macro-step as in phase 13), no events
+ASSET_STEPS = 16
+ASSET_CUT_FLAGS = ["--warmup_iterations", "0", "--log_every", "4", "--sample_every", "0",
+                   "--checkpoint_every", "0", "--compute_scores", "false",
+                   "--MMD_lr_scheduler", "false", "--tensorboard", "false"]
+ASSET_PER_MACRO_STEP = {"pair_sum": 18, "pair_sum_grad_a": 17}
+# name, flags, source class, the asset's dataset in parity_day, samples; the
+# last three only with --only assets
+ASSET_RUNS = (
+    ("cifar10 flagship", FLAGSHIP_TRAIN_FLAGS, "ArraySource", "cifar_n"),
+    ("celeba160", CELEBA160_TRAIN_FLAGS, "CelebASource", "celeba_n"),
+    ("lsun64", LSUN64_TRAIN_FLAGS, "LSUNSource", "lsun_n"),
+    ("imagenet64 resnet", ["--is_train", "true", "--dataset", "imagenet64"] + RESNET64_FLAGS,
+     "ArraySource", "imagenet_n"),
+)
+PARITY_PASS = ("inception-weights", "dataset-cifar10", "dataset-imagenet64", "dataset-celeba",
+               "dataset-lsun", "real-fid-kid-selfcheck")
+
+
+def _encode_fixtures(tree: str):
+    """The encoder manifest and its ``case_image`` (from the fixtures'
+    generator, which imports PIL only when run)."""
+    import importlib.util
+    root = os.path.join(tree, ENCODE_FIXTURE_DIR)
+    spec = importlib.util.spec_from_file_location("port_jpeg_encode_fixtures",
+                                                  os.path.join(root, "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with open(os.path.join(root, "manifest.json")) as f:
+        return json.load(f), mod
+
+
+def check_encoder(tree: str, results: dict):
+    """(a) The native JPEG encoder built with g++ from the checkout; every
+    manifest case at PIL's recorded SHA-256, the plain encoder's bytes
+    equal to it up to 64x64, every file read back by the native decoder;
+    ms per image at the asset geometries on 1 and 8 threads.  Returns the
+    manifest and the fixtures' module."""
+    import hashlib
+    import numpy as np
+    from smmdax_torch.data import jpeg_encode, native
+    from smmdax_torch.tools.make_assets import _proc_image
+    t0 = time.perf_counter()
+    native.encode_library()
+    build_s = time.perf_counter() - t0
+    manifest, fx = _encode_fixtures(tree)
+    plain_n = 0
+    for case in manifest["cases"]:
+        img = fx.case_image(case["kind"], case["seed"], case["h"], case["w"], _proc_image)
+        data = native.encode_jpeg(img, case["quality"])
+        if hashlib.sha256(data).hexdigest() != case["sha256"] or len(data) != case["bytes"]:
+            fail(f"encoder: {case['name']} differs from PIL's bytes ({len(data)} bytes, "
+                 f"PIL's {case['bytes']})")
+        if case["h"] * case["w"] <= ENCODE_PLAIN_MAX:
+            if jpeg_encode.encode_jpeg(img, case["quality"]) != data:
+                fail(f"encoder: the plain encoder's {case['name']} differs from the native one's")
+            plain_n += 1
+        back = native.decode_jpeg(data)
+        if back.shape != img.shape:
+            fail(f"encoder: {case['name']} decodes to {back.shape}")
+        if case["kind"] == "proc" and case["h"] * case["w"] > ENCODE_PLAIN_MAX and \
+                np.abs(back.astype(int) - img.astype(int)).mean() > 8:
+            fail(f"encoder: {case['name']} decodes far from its field")
+    timings = {}
+    rng = np.random.default_rng(0)
+    for label, h, w, q in ENCODE_TIMINGS:
+        work = [_proc_image(rng, h, w) for _ in range(ENCODE_TIMING_IMAGES)]
+        timings[label] = _ms_per_image(lambda a, q=q: native.encode_jpeg(a, q), work)
+    card = card_line()
+    results["assets"]["encoder"] = dict(build_s=build_s, cases=len(manifest["cases"]),
+                                        plain_cases=plain_n, timings=timings, card=card)
+    log(f"encoder: built in {build_s:.2f} s (g++); {len(manifest['cases'])} manifest cases at "
+        f"PIL's SHA-256 ({manifest['generator']}), the plain encoder equal on {plain_n} of "
+        "them (64x64 or less), every file read back by the native decoder")
+    for label, row in timings.items():
+        log(f"encoder: {label}: {row['ms_per_image_1_thread']:.3f} ms per image on 1 thread, "
+            f"{row['ms_per_image_8_thread']:.3f} on 8 ({ENCODE_TIMING_IMAGES} images); {card}")
+    return manifest, fx
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def run_make_assets(tree: str, data_dir: str, counts: dict, want: dict, fx,
+                    results: dict) -> None:
+    """(b) ``python -m smmdax_torch.tools.make_assets`` in a fresh process at
+    ``counts``: seconds per format (from the times its last lines arrive;
+    CIFAR-10's include the process start), bytes per format, and each
+    format's digest equal to the JAX tool's recorded one."""
+    from smmdax_torch.tools.make_assets import asset_digests
+    cmd = [sys.executable, "-m", "smmdax_torch.tools.make_assets", "--out", data_dir] + \
+        fx.counts_argv(counts)
+    ends = [(fmt, line.format(**counts)) for fmt, line in ASSET_END_LINES]
+    t0 = time.perf_counter()
+    marks, lines = {}, []
+    proc = subprocess.Popen(cmd, cwd=tree, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=dict(os.environ, PYTHONPATH=tree))
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            for fmt, prefix in ends:
+                if line.startswith(prefix) and fmt not in marks:
+                    marks[fmt] = time.perf_counter() - t0
+        err = proc.stderr.read()
+        rc = proc.wait(timeout=MAKE_ASSETS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0 or sorted(marks) != sorted(ASSET_DIRS) or \
+            not lines[-1].startswith(f"assets under {data_dir} in "):
+        fail(f"make_assets: exited {rc}, lines {lines[-8:]}, {err[-2000:]}")
+    seconds, prev = {}, 0.0
+    for fmt, _ in ends:
+        seconds[fmt], prev = marks[fmt] - prev, marks[fmt]
+    sizes = {fmt: _tree_bytes(os.path.join(data_dir, d)) for fmt, d in ASSET_DIRS.items()}
+    got = asset_digests(data_dir)
+    bad = [fmt for fmt in got if got[fmt] != want[fmt]]
+    if bad:
+        fail(f"make_assets: the digests of {bad} differ from the JAX tool's at {counts}")
+    results["assets"]["make_assets"] = dict(counts=counts, wall_s=wall, seconds=seconds,
+                                            bytes=sizes, digests=got)
+    log(f"make_assets (fresh process, {wall:.1f} s): "
+        + "; ".join(f"{fmt} {counts[k]:,} in {seconds[fmt]:.2f} s, {sizes[fmt] / 1e6:.1f} MB"
+                    for fmt, k in zip(ASSET_DIRS, ("cifar_n", "celeba_n", "lsun_n", "imagenet_n",
+                                                   "mnist_n")))
+        + " (CIFAR-10's seconds include the process start); every format's digest equals the "
+          "JAX tool's (JPEG files, data.mdb and the idx file by bytes, pickles and npz by "
+          "arrays and labels)")
+
+
+def _items(src) -> int:
+    """Samples of a source: its files, LMDB records or array rows."""
+    if hasattr(src, "files"):
+        return len(src.files)
+    return len(src.reader) if hasattr(src, "reader") else len(src.data)
+
+
+def _asset_run(tmp: str, data_dir: str, name: str, flags: list, source_name: str,
+               items: int) -> dict:
+    """A training run of ``flags`` from the written assets, ASSET_STEPS
+    macro-steps: the source is the asset's (``items`` samples), never the
+    synthetic one; kernels 1-2 launched ASSET_PER_MACRO_STEP times per
+    macro-step; images/s over the windows after the first, host ms per
+    macro-batch against ms per macro-step."""
+    import torch
+    from smmdax_torch.configs import config_from_args
+    from smmdax_torch.trainer import Trainer
+    run = name.replace(" ", "_")
+    cfg = config_from_args(flags + ASSET_CUT_FLAGS + _dirs(tmp, run)
+                           + ["--data_dir", data_dir, "--max_iteration", str(ASSET_STEPS)])
+    trainer = Trainer(cfg, device="cuda")
+    src = trainer.source
+    n = _items(src)
+    if type(src).__name__ != source_name or n != items:
+        fail(f"{name}: the trainer's source is {type(src).__name__} of {n}, not "
+             f"{source_name} of {items}")
+    counters = _zero_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    rows = _log_rows(trainer)
+    _finite_rows(rows, name)
+    want = {k: v * ASSET_STEPS for k, v in ASSET_PER_MACRO_STEP.items()}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"{name}: launches {launches}, want {want} over {ASSET_STEPS} macro-steps")
+    ips = _steady_rate(rows, cfg.log_every)
+    images = _images_per_macro_step(trainer, ASSET_STEPS)
+    res = dict(source=f"{type(src).__name__} of {n}", wall_s=wall, launches=launches,
+               launches_per_macro_step={k: v / ASSET_STEPS for k, v in launches.items()},
+               images_per_s=ips, images_per_macro_step=images,
+               ms_per_macro_step=1e3 * images / ips,
+               host_ms_per_macro_batch=_host_batch_ms(trainer, ASSET_STEPS),
+               windows=[r["images_per_sec"] for r in rows if "images_per_sec" in r])
+    log(f"{name}: {ASSET_STEPS} macro-steps from {res['source']} in {wall:.2f} s; trainer "
+        f"{ips:.1f} images/s over the windows after the first ({res['ms_per_macro_step']:.1f} "
+        f"ms per macro-step of {images} images; one macro-batch "
+        f"{res['host_ms_per_macro_batch']:.1f} ms on the host); launches {launches} = "
+        f"{ASSET_PER_MACRO_STEP} per macro-step; windows "
+        + ", ".join(f"{v:.1f}" for v in res["windows"]))
+    return res
+
+
+def _decode_pass(data_dir: str, results: dict) -> None:
+    """One decode (and crop / resize) of every CelebA file and LSUN record
+    on 8 threads, images/s; and the MNIST idx file read back at c_dim 1."""
+    import concurrent.futures as cf
+    import numpy as np
+    from smmdax_torch.configs import Config
+    from smmdax_torch.data import make_dataset
+    out = {}
+    for ds, size in (("celeba", 160), ("lsun", 64)):
+        src = make_dataset(Config(dataset=ds, output_size=size, data_dir=data_dir))
+        n = _items(src)
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(8) as pool:
+            shapes = set(a.shape for a in pool.map(src.decode_u8, range(n)))
+        secs = time.perf_counter() - t0
+        if shapes != {(size, size, 3)}:
+            fail(f"decode pass: {ds} crops of shapes {shapes}")
+        out[ds] = dict(items=n, seconds=secs, images_per_s=n / secs)
+        log(f"decode pass: {n:,} {type(src).__name__} items decoded and cropped to {size} px "
+            f"on 8 threads in {secs:.2f} s ({n / secs:.1f} images/s)")
+    results["assets"]["decode_pass"] = out
+
+
+def check_mnist(data_dir: str, n: int, results: dict) -> None:
+    """The MNIST idx file read back through ``make_dataset`` at c_dim 1."""
+    import numpy as np
+    from smmdax_torch.configs import Config
+    from smmdax_torch.data import make_dataset
+    src = make_dataset(Config(dataset="mnist", output_size=28, c_dim=1, data_dir=data_dir))
+    b = src.batch(64, key=0)
+    if type(src).__name__ != "ArraySource" or src.data.shape != (n, 28, 28, 1) or \
+            b.shape != (64, 28, 28, 1) or not (-1.0 <= float(b.min()) <= float(b.max()) <= 1.0):
+        fail(f"mnist: {type(src).__name__} {getattr(src, 'data', np.empty(0)).shape}, "
+             f"batch {b.shape}")
+    results["assets"]["mnist"] = dict(samples=n, batch=list(b.shape))
+    log(f"mnist: the idx file read back through make_dataset, {n:,} rasters (c_dim 1), a "
+        f"batch {tuple(b.shape)} in [{float(b.min()):.3f}, {float(b.max()):.3f}]")
+
+
+def run_parity_day(tree: str, data_dir: str, results: dict) -> None:
+    """(d) The port's random Inception weights (seed 5, no aux head) as
+    ``inception_v3.npz`` beside the assets, then ``python -m
+    smmdax_torch.tools.parity_day --data_dir DIR --json`` in a fresh
+    process: exit 0, PARITY_PASS all PASS, FID and KID finite."""
+    import re
+    import numpy as np
+    from smmdax_torch.eval.inception import random_state_dict
+    np.savez(os.path.join(data_dir, "inception_v3.npz"),
+             **random_state_dict(seed=5, include_aux=False))
+    lines, _, wall = _python_m(tree, ["smmdax_torch.tools.parity_day", "--data_dir", data_dir,
+                                      "--json"], PARITY_DAY_TIMEOUT_S)
+    rows = json.loads(lines[-1])
+    status = {r["check"]: r["status"] for r in rows}
+    bad = [c for c in PARITY_PASS if status.get(c) != "PASS"]
+    if bad:
+        fail(f"parity_day: {bad} not PASS: {rows}")
+    detail = next(r["detail"] for r in rows if r["check"] == "real-fid-kid-selfcheck")
+    fid = float(re.search(r"FID (\S+),", detail).group(1))
+    kid = float(re.search(r"KID (\S+) ", detail).group(1))
+    if not (math.isfinite(fid) and math.isfinite(kid)):
+        fail(f"parity_day: FID {fid}, KID {kid}")
+    card = card_line()
+    results["assets"]["parity_day"] = dict(wall_s=wall, rows=rows, fid=fid, kid=kid, card=card)
+    for r in rows:
+        log(f"  parity_day| {r['check']} [{r['status']}] {r['detail']}")
+    log(f"parity_day (fresh process, {wall:.1f} s): exit 0, {', '.join(PARITY_PASS)} PASS; "
+        f"CIFAR-10 half against half FID {fid}, KID {kid} (random Inception weights); {card}")
+
+
+def run_assets(tmp: str, results: dict, tree: str, full: bool) -> dict:
+    """Phase 14 (see the module docstring): the whole script's counts, or
+    with ``full`` (``--only assets``) every default and the runs from every
+    format.  Returns the kernels' launches in the flagship's run from the
+    CIFAR-10 pickles."""
+    t_phase = time.perf_counter()
+    results["assets"] = {}
+    manifest, fx = check_encoder(tree, results)
+    label = "defaults" if full else "whole"
+    entry = manifest["assets"][label]
+    counts = entry["counts"]
+    data_dir = os.path.join(tmp, "assets")
+    run_make_assets(tree, data_dir, counts, entry["digests"], fx, results)
+    runs = {}
+    for name, flags, source_name, count in ASSET_RUNS[:None if full else 1]:
+        runs[name] = _asset_run(tmp, data_dir, name, flags, source_name, counts[count])
+    results["assets"]["runs"] = runs
+    if full:
+        _decode_pass(data_dir, results)
+    check_mnist(data_dir, counts["mnist_n"], results)
+    run_parity_day(tree, data_dir, results)
+    card = card_line()
+    results["assets"].update(phase_s=time.perf_counter() - t_phase, card=card)
+    log(f"assets phase ({label} counts): {results['assets']['phase_s']:.1f} s; {card}")
+    return runs["cifar10 flagship"]["launches"]
+
+
 def write_results(path, results: dict) -> None:
     """All results as JSON at ``path`` (nothing for None)."""
     if path:
@@ -3840,7 +4167,7 @@ def main(argv=None) -> int:
                         help="import smmdax_torch from this checkout (default: beside "
                              "this script), e.g. an earlier commit unpacked by git archive")
     parser.add_argument("--only", choices=("profile", "ranks", "inception", "formats",
-                                           "dryrun", "bench", "decoders"),
+                                           "dryrun", "bench", "assets", "decoders"),
                         default=None,
                         help="decoders: no CUDA build, only this tree's baseline JPEG "
                              "decoder against --tree's, interleaved in one process; "
@@ -3852,7 +4179,9 @@ def main(argv=None) -> int:
                              "formats: build, then phase 11 alone, and no ok line; "
                              "dryrun: build, then phase 12 alone, and no ok line; "
                              "bench: build, then phase 13 with the bench and its tools "
-                             "in fresh processes, and no ok line")
+                             "in fresh processes, and no ok line; "
+                             "assets: build, then phase 14 at the asset tool's defaults "
+                             "with the runs from every format, and no ok line")
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
     # cuBLAS reads it when CUDA starts: phase 5 runs deterministic
@@ -3895,9 +4224,10 @@ def main(argv=None) -> int:
         write_results(args.out, results)
         print(card_line(), flush=True)
         return 0
-    if args.only in ("ranks", "inception", "formats", "dryrun"):
+    if args.only in ("ranks", "inception", "formats", "dryrun", "assets"):
         phase = {"ranks": run_ranks, "inception": run_inception, "formats": run_formats,
-                 "dryrun": run_dryrun}
+                 "dryrun": run_dryrun,
+                 "assets": lambda tmp, res, tr: run_assets(tmp, res, tr, full=True)}
         with tempfile.TemporaryDirectory() as tmp:
             phase[args.only](tmp, results, tree)
         write_results(args.out, results)
@@ -3995,6 +4325,10 @@ def main(argv=None) -> int:
     # phase 13
     bench = run_bench(results, tree, processes=False)
 
+    # phase 14
+    with tempfile.TemporaryDirectory() as tmp:
+        assets = run_assets(tmp, results, tree, full=False)
+
     dev3 = results["flagship bf16"]["profile"]["csrc_device_us_per_launch"]
     dev4 = results["tmmd ring bf16"]["profile"]["csrc_device_us_per_launch"]
 
@@ -4059,6 +4393,8 @@ def main(argv=None) -> int:
                                    "two_ranks_rank0": dryrun["two_ranks"][counter]}
         # phase 13: the bench's device-resident, sampling and host-fed arms
         kern["bench_launches"] = bench[counter]
+        # phase 14: the flagship's run from the CIFAR-10 pickles
+        kern["assets_launches"] = assets[counter]
     card = card_line()
     results.update(kernels=kernels, card=card)
     write_results(args.out, results)

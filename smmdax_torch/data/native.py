@@ -1,22 +1,25 @@
 """Build and load the native image libraries (``data/_native/*.cpp``).
 
-Three sources, each its own library: ``jpeg.cpp`` (the JPEG decoder and
+Four sources, each its own library: ``jpeg.cpp`` (the JPEG decoder and
 PIL's bilinear resize), ``webp.cpp`` (the webp decoder: lossless, lossy,
-and an animation's first frame) and ``png.cpp`` (PNG's filters, Adam7 and
-samples to RGB, after Python's ``zlib`` has inflated the image data).
+and an animation's first frame), ``png.cpp`` (PNG's filters, Adam7 and
+samples to RGB, after Python's ``zlib`` has inflated the image data) and
+``jpeg_encode.cpp`` (the baseline JPEG encoder of the asset tools).
 Each is compiled with ``g++ -O3 -shared -fPIC`` at first use into
 ``smmdax_torch/_build/`` (listed in ``.gitignore``), under a name hashed
 from the source, the flags and the machine, and bound with ``ctypes``
 (plain C interface).  The compiler writes to a temporary name that
 ``os.replace`` then moves into place, so processes building at once never
 load half a file.  A ``ctypes`` call releases the GIL: a pool of threads
-decodes side by side.
+decodes (or encodes) side by side.
 
 There is no fallback: if a library cannot be built or loaded, decoding
-raises.  The plain JPEG and PNG decoders (``data/jpeg.py``,
+and encoding raise.  The plain JPEG and PNG decoders (``data/jpeg.py``,
 ``utils.decode_png``) are the references the tests hold the native ones
-to, never substitutes for them; every decoder is held to PIL's decodes
-(live in the tests, as recorded digests on a machine without PIL).
+to, never substitutes for them, and so is the plain encoder
+(``data/jpeg_encode.py``) to the native one; every decoder is held to
+PIL's decodes and the encoder to PIL's files (live in the tests, as
+recorded digests on a machine without PIL).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ NATIVE_DIR = os.path.join(PACKAGE_DIR, "data", "_native")
 SOURCE = os.path.join(NATIVE_DIR, "jpeg.cpp")
 WEBP_SOURCE = os.path.join(NATIVE_DIR, "webp.cpp")
 PNG_SOURCE = os.path.join(NATIVE_DIR, "png.cpp")
+ENCODE_SOURCE = os.path.join(NATIVE_DIR, "jpeg_encode.cpp")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -44,6 +48,7 @@ _LOCK = threading.Lock()
 _LIB = None
 _WEBP_LIB = None
 _PNG_LIB = None
+_ENCODE_LIB = None
 _ERRLEN = 512
 
 
@@ -132,6 +137,24 @@ def png_library() -> ctypes.CDLL:
         return _PNG_LIB
 
 
+def encode_library() -> ctypes.CDLL:
+    """The loaded JPEG encoder, built first if needed."""
+    global _ENCODE_LIB
+    with _LOCK:
+        if _ENCODE_LIB is None:
+            lib = _load(ENCODE_SOURCE, "libjpeg_encode", "JPEG encoder")
+            lib.smm_jpeg_encode.restype = ctypes.c_int
+            lib.smm_jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int64, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_void_p),
+                                            ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p,
+                                            ctypes.c_int]
+            lib.smm_jpeg_free.restype = None
+            lib.smm_jpeg_free.argtypes = [ctypes.c_void_p]
+            _ENCODE_LIB = lib
+        return _ENCODE_LIB
+
+
 def _raise(code: int, err) -> None:
     msg = err.value.decode(errors="replace")
     if code == 1:
@@ -187,6 +210,27 @@ def decode_png(data: bytes, path: str = "PNG data") -> np.ndarray:
                           out.ctypes.data, err, _ERRLEN):
         raise ValueError(f"{path}: corrupt PNG: {err.value.decode(errors='replace')}")
     return out
+
+
+def encode_jpeg(u8: np.ndarray, quality: int) -> bytes:
+    """(H, W, 3) uint8 RGB -> exactly the bytes of PIL's
+    ``Image.fromarray(u8).save(buf, format="JPEG", quality=quality)``:
+    baseline, 4:2:0, the standard Huffman tables.  Other input (not uint8,
+    not RGB, quality outside 1..100) raises ``ValueError``."""
+    from smmdax_torch.data.jpeg_encode import check_input
+    check_input(u8, quality)
+    if u8.strides[1] != 3 or u8.strides[2] != 1 or u8.strides[0] <= 0:
+        u8 = np.ascontiguousarray(u8)
+    lib = encode_library()
+    out, n = ctypes.c_void_p(), ctypes.c_int64()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if lib.smm_jpeg_encode(u8.ctypes.data, u8.shape[0], u8.shape[1], u8.strides[0], int(quality),
+                           ctypes.byref(out), ctypes.byref(n), err, _ERRLEN):
+        raise ValueError(f"encode_jpeg: {err.value.decode(errors='replace')}")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.smm_jpeg_free(out)
 
 
 def resize_pil(u8: np.ndarray, size, xcoeffs, ycoeffs) -> np.ndarray:

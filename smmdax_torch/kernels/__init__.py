@@ -19,6 +19,7 @@ from smmdax_torch.kernels.mmd import (  # noqa: F401
     mmd2_and_ratio,
     mmd2_and_variance,
     mmd2_and_variance_from_stats,
+    mmd2_from_blocks,
     mmd2_from_sums,
     mmd_sums,
     var_stats_from_blocks,

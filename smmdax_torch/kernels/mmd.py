@@ -78,6 +78,13 @@ def mmd2(blocks: KernelBlocks, biased: bool = False) -> Tensor:
     return mmd2_from_sums(s, biased=False)
 
 
+def mmd2_from_blocks(k_xx: Tensor, k_xy: Tensor, k_yy: Tensor,
+                     k_diag: Optional[float] = None,
+                     biased: bool = False) -> Tensor:
+    """``mmd2`` of the Gram blocks given one by one."""
+    return mmd2(KernelBlocks(k_xx, k_xy, k_yy, k_diag), biased=biased)
+
+
 class VarStats(NamedTuple):
     """Sufficient statistics of the Sutherland variance estimator
     (``kt_*`` exclude the diagonal).  Every field is a sum over blocks of

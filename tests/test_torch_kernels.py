@@ -70,3 +70,19 @@ def test_smmd_scale(variant):
     want = jk.smmd_scale(g, v, 10.0, variant)
     got = tk.smmd_scale(torch.from_numpy(g), torch.from_numpy(v), 10.0, variant)
     np.testing.assert_allclose(float(got), float(want), **TOL)
+
+
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("k_diag", [None, 1.0])
+def test_mmd2_from_blocks(biased, k_diag):
+    """The blocks given one by one, with and without a constant diagonal
+    (taken from the blocks' traces when None)."""
+    x, y = _xy(3)
+    blocks = jk.kernel_matrices("rq", x, y)
+    k_xx, k_xy, k_yy = (np.array(b) for b in blocks[:3])
+    want = jk.mmd2_from_blocks(k_xx, k_xy, k_yy, k_diag, biased=biased)
+    got = tk.mmd2_from_blocks(*(torch.from_numpy(b) for b in (k_xx, k_xy, k_yy)), k_diag,
+                              biased=biased)
+    terms = max(abs(float(b.mean())) for b in (k_xx, k_xy, k_yy))
+    np.testing.assert_allclose(float(got), float(want), rtol=TOL["rtol"],
+                               atol=TOL["atol"] + TOL["rtol"] * terms)
