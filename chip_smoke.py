@@ -120,23 +120,28 @@ Phases, each fatal on failure:
    fresh process with torch alone, equal to ``sample`` on the same z to
    1e-6, and images/s of the loaded program against eager ``sample``;
 11. real image formats, from the committed JPEG, PNG and webp fixtures
-   (``tests/fixtures/port_images``, ``port_png`` and ``port_webp``, with
-   PIL's hashes in their manifests):
+   (``tests/fixtures/port_images``, ``port_jpeg_layouts``, ``port_png`` and
+   ``port_webp``, with PIL's hashes in their manifests):
    (a) the native JPEG and PNG decoders built with g++ from the checkout
-   (their build times printed); every JPEG fixture (baseline and
-   progressive; grey, YCbCr, RGB, CMYK and YCCK) and every PNG fixture
-   (palette, grey at 1-16 bits, grey+alpha, RGB and RGBA at 8 and 16 bits,
-   Adam7, every filter) decoded to PIL's recorded bytes and to the plain
-   decoder's, its ``center_crop_resize`` at 160 (crop 160) and 64 (the
-   shorter side) equal to PIL's recorded hashes and to the plain resize;
-   the refused JPEG layouts (lossless, hierarchical, arithmetic, 12-bit,
-   4:4:0, unsent progressive bits) raising ``JPEGUnsupported`` in both
-   decoders, naming their ROADMAP item; truncated PNGs raising; ms per
-   image of decode and crop / resize at 1 and 8 threads: JPEG baseline and
-   progressive at 178x218 and 256x256 4:2:0, CMYK at 256x256 (baseline
-   256x256 also with the numpy resize, 8 threads), PNG palette, 16-bit
-   grey and Adam7 at 256x256; (b) a CelebA-layout directory of 1,024 files
-   cycling over every readable JPEG and PNG fixture (mixed layouts), an
+   (their build times printed); every JPEG fixture (baseline, progressive
+   and smoothed progressive, arithmetic-coded, lossless; every sampling
+   layout; grey, YCbCr, RGB, CMYK and YCCK; scans out of the frame's
+   order) and every PNG fixture (palette, grey at 1-16 bits, grey+alpha,
+   RGB and RGBA at 8 and 16 bits, Adam7, every filter) decoded to PIL's
+   recorded bytes and to the plain decoder's, its ``center_crop_resize``
+   at 160 (crop 160) and 64 (the shorter side) equal to PIL's recorded
+   hashes and to the plain resize; the JPEG layouts PIL refuses too
+   (hierarchical, arithmetic lossless, 12-bit, 2 components, a DNL
+   height, fractional sampling, colour conversion in a lossless file, a
+   scan out of get_sos's order) raising ``JPEGUnsupported`` in both
+   decoders; truncated PNGs raising; ms per image of decode and crop /
+   resize at 1 and 8 threads: JPEG baseline and progressive at 178x218 and
+   256x256 4:2:0, CMYK at 256x256 (baseline 256x256 also with the numpy
+   resize, 8 threads), arithmetic sequential and progressive and a
+   smoothed progressive file at 178x218, lossless at 64x64, PNG palette,
+   16-bit grey and Adam7 at 256x256; (b) a CelebA-layout directory of
+   1,024 files cycling over every readable JPEG fixture (the new layouts
+   too) and every PNG fixture (mixed layouts), an
    LSUN LMDB of 1,024 lossy webp records at 256 px (the official LSUN
    encoding; the port's ``write_lmdb``) and a TFRecord shard of 256
    encoded JPEG records framed here, all copies of the fixtures;
@@ -2632,6 +2637,9 @@ def run_inception(tmp: str, results: dict, tree: str) -> dict:
 
 
 FIXTURE_DIR = os.path.join("tests", "fixtures", "port_images")
+# the layouts PIL decodes but never writes: arithmetic coding, lossless,
+# other sampling layouts, scans out of order, smoothed progressive files
+LAYOUT_FIXTURE_DIR = os.path.join("tests", "fixtures", "port_jpeg_layouts")
 PNG_FIXTURE_DIR = os.path.join("tests", "fixtures", "port_png")
 FORMAT_FILES = 1024            # files of the CelebA directory, records of the LSUN LMDB
 TFRECORD_RECORDS = 256         # records of the ImageNet-64 TFRecord shard
@@ -2690,7 +2698,11 @@ JPEG_TIMINGS = (("178x218 -> crop 160", "celeba_", 160, 160),
                 ("256x256 -> 64", "lsun_", 64, None),
                 ("progressive 178x218 -> crop 160", "progressive_celeba_", 160, 160),
                 ("progressive 4:2:0 256x256 -> 64", "progressive_lsun_", 64, None),
-                ("CMYK 256x256 -> 64", "cmyk_256x256", 64, None))
+                ("CMYK 256x256 -> 64", "cmyk_256x256", 64, None),
+                ("arithmetic 178x218 -> crop 160", "arith_seq_celeba_", 160, 160),
+                ("arithmetic progressive 178x218 -> crop 160", "arith_prog_celeba_", 160, 160),
+                ("smoothed progressive 178x218 -> crop 160", "smooth_celeba_", 160, 160),
+                ("lossless 64x64 -> 64", "lossless_64x64", 64, None))
 PNG_TIMINGS = (("palette 256x256 -> 64", "p8_256x256.png"),
                ("16-bit grey 256x256 -> 64", "l16_256x256.png"),
                ("Adam7 RGB 256x256 -> 64", "adam7_rgb8_256x256.png"))
@@ -2770,18 +2782,20 @@ def _check_crops(what: str, name: str, got, e: dict, image) -> None:
 
 
 def check_decoder(tree: str, results: dict) -> list:
-    """(a) The native JPEG decoder built from the checkout; every fixture
-    (baseline and progressive, grey, YCbCr, RGB, CMYK, YCCK) against PIL's
-    recorded hashes and the plain decoder; its crops at 160 and 64 against
-    their recorded hashes and the plain resize; the refused layouts raise
-    JPEGUnsupported in both decoders, naming their ROADMAP item.  ms per
-    image at 1 and 8 threads.  Returns the fixtures."""
+    """(a) The native JPEG decoder built from the checkout; every fixture of
+    ``port_images`` and ``port_jpeg_layouts`` (baseline, progressive and
+    smoothed progressive, arithmetic, lossless; every sampling layout; grey,
+    YCbCr, RGB, CMYK, YCCK; scans out of order) against PIL's recorded
+    hashes and the plain decoder; its crops at 160 and 64 against their
+    recorded hashes and the plain resize; the layouts PIL refuses raise
+    JPEGUnsupported in both decoders, saying that PIL cannot decode them
+    either.  ms per image at 1 and 8 threads.  Returns the fixtures."""
     import numpy as np
     from smmdax_torch.data import image, jpeg, native
     t0 = time.perf_counter()
     native.library()
     build_s = time.perf_counter() - t0
-    fixtures = _fixtures(tree)
+    fixtures = _fixtures(tree) + _fixtures(tree, LAYOUT_FIXTURE_DIR)
     read = 0
     for e, data in fixtures:
         name = e["name"]
@@ -2790,8 +2804,8 @@ def check_decoder(tree: str, results: dict) -> list:
                 try:
                     decode(data)
                 except jpeg.JPEGUnsupported as err:
-                    if f"ROADMAP: {jpeg.ROADMAP_ITEM}" not in str(err):
-                        fail(f"decoder: {name}'s refusal names no ROADMAP item: {err}")
+                    if "cannot decode this JPEG either" not in str(err):
+                        fail(f"decoder: {name}'s refusal does not say PIL refuses it: {err}")
                     continue
                 fail(f"decoder: {name} decoded by {decode.__module__}, must be refused")
             continue
@@ -2824,9 +2838,10 @@ def check_decoder(tree: str, results: dict) -> list:
                                        (8,) if "numpy" in label else (1, 8))
     results["formats"]["decoder"] = dict(build_s=build_s, fixtures_read=read,
                                          fixtures_refused=len(fixtures) - read, timings=timings)
-    log(f"decoder: built in {build_s:.1f} s; {read} fixtures (baseline and progressive, grey, "
-        f"YCbCr, RGB, CMYK, YCCK) equal PIL's hashes and the plain decoder, crops at 160 and "
-        f"64 equal PIL's and the plain resize; {len(fixtures) - read} refused layouts raise")
+    log(f"decoder: built in {build_s:.1f} s; {read} fixtures (baseline, progressive and "
+        f"smoothed, arithmetic, lossless; every sampling layout; grey, YCbCr, RGB, CMYK, YCCK; "
+        f"scans out of order) equal PIL's hashes and the plain decoder, crops at 160 and 64 "
+        f"equal PIL's and the plain resize; {len(fixtures) - read} layouts PIL refuses raise")
     _log_timings("decoder", timings)
     return fixtures
 
@@ -3807,18 +3822,20 @@ def _jpeg_library(tree: str, stem: str):
 
 
 def decoders_only(tree: str) -> int:
-    """The baseline JPEG decoder of this tree against ``tree``'s (no CUDA
-    build), in this one process: both built from their sources, held equal
-    on this tree's CelebA and LSUN fixtures (and to PIL's recorded hash),
-    then DECODER_ROUNDS rounds of four 384-image sweeps on 1 thread in the
-    orders ABBA and BAAB by turns; the medians of the sweeps' ms per image,
-    their quartiles, and the rounds this tree won."""
+    """The JPEG decoder of this tree against ``tree``'s (no CUDA build), in
+    this one process: both built from their sources, held equal on this
+    tree's baseline CelebA and LSUN fixtures and its progressive CelebA one
+    (and to PIL's recorded hash), then DECODER_ROUNDS rounds of four
+    384-image sweeps on 1 thread in the orders ABBA and BAAB by turns; the
+    medians of the sweeps' ms per image, their quartiles, and the rounds
+    this tree won."""
     import numpy as np
     libs = {"this": _jpeg_library(HERE, "libjpeg_this"),
             "other": _jpeg_library(tree, "libjpeg_other")}
     fixtures = _fixtures(HERE)
     out = {}
-    for label, prefix in (("baseline 178x218", "celeba_"), ("baseline 256x256", "lsun_")):
+    for label, prefix in (("baseline 178x218", "celeba_"), ("baseline 256x256", "lsun_"),
+                          ("progressive 178x218", "progressive_celeba_")):
         picked = [(e, d) for e, d in fixtures if e["name"].startswith(prefix)]
         for e, data in picked:
             got = libs["this"](data)

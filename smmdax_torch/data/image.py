@@ -5,11 +5,12 @@ machine with the card has no PIL, and batches must stay byte-identical
 to the JAX package's.  So:
 
 * ``decode_image`` reads JPEG, PNG and webp with the native decoders
-  (``data/native.py``, PIL's bytes): JPEG baseline or progressive, 8-bit,
-  grey, YCbCr at 4:4:4 / 4:2:2 / 4:2:0, RGB, CMYK and YCCK (other layouts
-  raise ``JPEGUnsupported``, naming their ROADMAP item); PNG of every
-  colour type and bit depth, Adam7 or not; webp lossy or lossless, still
-  or animated (its first frame).  Any other format raises.
+  (``data/native.py``, PIL's bytes): every JPEG PIL decodes (Huffman or
+  arithmetic coded, sequential, progressive or lossless, 8-bit, every
+  integral sampling layout; grey, YCbCr, RGB, CMYK and YCCK), the rest
+  raising ``JPEGUnsupported`` as PIL raises; PNG of every colour type and
+  bit depth, Adam7 or not; webp lossy or lossless, still or animated (its
+  first frame).  Any other format raises.
 * ``resize_bilinear_pil`` is Pillow's ``ImagingResample`` with the
   bilinear filter: per axis, the triangle filter's support widened by the
   downscale factor, weights normalised in float64 and turned into fixed

@@ -157,7 +157,7 @@ def encode_library() -> ctypes.CDLL:
 
 def _raise(code: int, err) -> None:
     msg = err.value.decode(errors="replace")
-    if code == 1:
+    if code == 1:      # a layout PIL refuses too
         raise unsupported(msg)
     raise ValueError(f"corrupt JPEG: {msg}")
 
@@ -178,8 +178,9 @@ def _decode(size_fn, decode_fn, data: bytes, fail) -> np.ndarray:
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> (H, W, 3) uint8 RGB, equal to PIL's
-    ``Image.open(...).convert("RGB")``.  Layouts the decoder does not read
-    raise ``NotImplementedError``; corrupt data ``ValueError``."""
+    ``Image.open(...).convert("RGB")``.  A file PIL does not decode either
+    raises ``JPEGUnsupported`` (a ``NotImplementedError``) saying so;
+    corrupt data the decoder cannot follow raises ``ValueError``."""
     lib = library()
     return _decode(lib.smm_jpeg_size, lib.smm_jpeg_decode, data, _raise)
 

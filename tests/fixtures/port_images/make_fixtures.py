@@ -8,9 +8,12 @@ port's decoder reads: baseline and progressive, CelebA's 178x218 at
 quality 75 4:2:0, LSUN's 256x256 at quality 85, 4:2:2, 4:4:4, grey, odd
 sizes, restart intervals, optimized Huffman tables, CMYK, RGB kept without
 the YCbCr transform; by hand edits of PIL's files (``patch``), YCCK and a
-YCbCr file with an Adobe marker; and the layouts it refuses, their
+YCbCr file with an Adobe marker; and the layouts it once refused, their
 headers patched (lossless, hierarchical, arithmetic, 12-bit, 4:4:0) or a
-progressive file cut short.
+progressive file cut short, which PIL refuses (lossless over DCT data,
+hierarchical, 12-bit) or decodes (arithmetic decoding of Huffman data,
+4:4:0, libjpeg's block smoothing); the layouts PIL decodes but never
+writes are in ``tests/fixtures/port_jpeg_layouts/``.
 ``manifest.json`` records, for each file, the SHA-256 of PIL's decoded
 RGB bytes and of the JAX package's ``center_crop_resize`` of them at 160
 (crop 160, CelebA's) and at 64 (the shorter side, LSUN's), so that a
@@ -32,7 +35,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 
 # name, (h, w), PIL save options, PIL mode, and the hand edit made to
-# PIL's file (``patch``, below); "refuse_" files must raise JPEGUnsupported
+# PIL's file (``patch``, below); the "refuse_" files are the layouts the
+# port's decoder once refused: those PIL fails on too must raise
+# JPEGUnsupported, the others (arithmetic-coded Huffman data, 4:4:0, unsent
+# bits) decode to PIL's bytes
 FIXTURES = [
     ("celeba_0.jpg", (218, 178), dict(quality=75, subsampling=2), "RGB", None),
     ("celeba_1.jpg", (218, 178), dict(quality=75, subsampling=2), "RGB", None),
@@ -299,6 +305,15 @@ def pil_hashes(data: bytes) -> dict:
                 crop64_sha256=sha(np.asarray(center_crop_resize(img, 64))))
 
 
+def pil_refuses(data: bytes) -> bool:
+    from PIL import Image
+    try:
+        Image.open(io.BytesIO(data)).convert("RGB")
+    except Exception:
+        return True
+    return False
+
+
 def main() -> None:
     from PIL import Image
 
@@ -319,7 +334,7 @@ def main() -> None:
         entry = dict(name=name, options=opts, mode=mode)
         if edit:
             entry["edit"] = edit
-        if name.startswith("refuse_"):
+        if name.startswith("refuse_") and pil_refuses(data):
             entry["refuse"] = "JPEGUnsupported"
         else:
             entry.update(pil_hashes(data))

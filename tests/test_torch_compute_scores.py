@@ -165,19 +165,22 @@ def test_mixed_size_jpeg_directory_reads_as_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("case", ["jpeg", "mixed sizes"])
 def test_unreadable_directories_raise(tmp_path, case):
-    """What still raises is an image the port cannot decode: an
-    arithmetic-coded JPEG (PIL's baseline file, its frame header patched to
-    SOF9), naming its ROADMAP item.  A webp file named .jpg in a set of
-    mixed sizes is read now, as the JAX package reads it with PIL."""
+    """What still raises is an image PIL cannot decode either: a
+    hierarchical JPEG (PIL's baseline file, its frame header patched to
+    SOF5) raises JPEGUnsupported, saying so, where the JAX package's PIL
+    raises too.  A webp file named .jpg in a set of mixed sizes is read now,
+    as the JAX package reads it with PIL."""
     import io
     Image = pytest.importorskip("PIL.Image")
     from smmdax_torch.utils import write_png
     write_png(str(tmp_path / "a.png"), np.zeros((4, 4, 3), np.uint8))
     if case == "jpeg":
         data = _jpeg_bytes(np.zeros((4, 4, 3), np.uint8))
-        (tmp_path / "b.jpg").write_bytes(data.replace(b"\xff\xc0", b"\xff\xc9", 1))
-        with pytest.raises(NotImplementedError, match="ROADMAP: JPEG layouts still refused"):
+        (tmp_path / "b.jpg").write_bytes(data.replace(b"\xff\xc0", b"\xff\xc5", 1))
+        with pytest.raises(NotImplementedError, match="PIL .* cannot decode this JPEG either"):
             tcs._load(str(tmp_path))
+        with pytest.raises(OSError):
+            jcs._load(str(tmp_path))
         return
     write_png(str(tmp_path / "b.png"), np.zeros((5, 4, 3), np.uint8))
     buf = io.BytesIO()

@@ -10,8 +10,9 @@ against the JAX package's ``__graft_entry__``.
   caller's ``DataAxis``): every mode passes with its asserts, rank 0 prints
   the OK lines and the summary; the three core modes start from JAX's
   ``create_state(PRNGKey(0))`` converted, with JAX's draws replayed, and
-  their metrics match JAX's same modes on a 2-device sub-mesh of the
-  conftest's 8 (``jit_train_step``);
+  their metrics match JAX's same modes on a 2-device sub-mesh
+  (``jit_train_step``; states, draws and metrics recorded by
+  ``tests/fixtures/port_dryrun/make_fixtures.py``);
 * ``dryrun_multichip(2, device="cpu")`` through its launcher in a fresh
   process: 13 OK lines in order, the summary, exit 0;
 * ``python -m smmdax_torch.graft_entry --device cpu``: the entry's finite
@@ -35,13 +36,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import NamedSharding, PartitionSpec as P
 
 import __graft_entry__ as jentry
 import _torch_dist
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
-from _torch_parity import dp_draws, jax_draws, jax_state, port_state
-from smmdax import train as jtrain
+from _torch_parity import port_state
 from smmdax_torch import convert, graft_entry
 from smmdax_torch.configs import Config as TConfig
 from smmdax_torch.train import create_state
@@ -113,24 +112,30 @@ def _core_cfgs(cfg):
                                                 with_scaling=False), "shard_map")]
 
 
+def _reference(core_cfgs) -> dict:
+    """JAX's core modes on a 2-device mesh (states, draws and metrics),
+    recorded by ``tests/fixtures/port_dryrun/make_fixtures.py``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_dryrun_fixtures", os.path.join(REPO, "tests", "fixtures", "port_dryrun",
+                                             "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load(core_cfgs)
+
+
 @pytest.fixture(scope="module")
 def dryrun(tmp_path_factory):
     """The 13 modes on one 2-rank gloo group, the core modes from JAX's
-    states and draws; JAX's core modes on a 2-device mesh."""
-    jctx = jentry._dryrun_ctx(N)
-    mesh, real = jctx["mesh"], jctx["real"]
+    states and draws; JAX's core modes on a 2-device mesh (recorded)."""
+    core = _core_cfgs(jentry._dryrun_ctx(N)["cfg"])
+    ref = _reference(core)
     inputs, want = {}, {}
-    for name, jcfg, mode in _core_cfgs(jctx["cfg"]):
-        js = jax_state(jcfg)
-        if mode == "shard_map":
-            noise = dp_draws(jcfg, jnp.asarray(js.rng), 1, 1, N)
-        else:
-            noise = [jax_draws(jcfg, jnp.asarray(js.rng), 1, 1)] * N
-        ts = port_state(_port_cfg(jcfg), js)
-        inputs[name] = dict(gen=ts.gen.state_dict(), disc=ts.disc.state_dict(), noise=noise)
-        step = jtrain.jit_train_step(jcfg, 1, 1, mesh=mesh, mode=mode or "gspmd")
-        _, m = step(jax.device_put(js, NamedSharding(mesh, P())), real)
-        want[name] = {k: float(v) for k, v in m.items()}
+    for name, jcfg, _ in core:
+        ts = port_state(_port_cfg(jcfg), ref[name]["state"])
+        inputs[name] = dict(gen=ts.gen.state_dict(), disc=ts.disc.state_dict(),
+                            noise=ref[name]["noise"])
+        want[name] = ref[name]["metrics"]
     ranks = _torch_dist.run(N, "dryrun_suite", dict(inputs=inputs),
                             tmp_path_factory.mktemp("dryrun"))
     return dict(ranks=ranks, want=want)
@@ -183,7 +188,8 @@ def test_dryrun_launcher_on_two_cpu_ranks():
 
 
 def test_command_line_on_the_cpu():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # torch on one thread in the process, as tests/_torch_threads.py runs it here
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("SMMDAX_DRYRUN_BUDGET", None)
     out = subprocess.run([sys.executable, "-m", "smmdax_torch.graft_entry", "--device", "cpu"],
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=600)

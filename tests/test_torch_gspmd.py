@@ -5,7 +5,9 @@ the port's own single-device step.
 * two macro-steps on 2 gloo ranks, on the same global batches as
   ``jit_train_step(cfg, mesh=make_mesh(2), mode="gspmd")``, with the
   global draws rebuilt from JAX's key splits (``_torch_parity.jax_draws``:
-  a GSPMD program draws what one device draws), for mmd with and without
+  a GSPMD program draws what one device draws; JAX's runs, from its own
+  ``create_state``, recorded by ``tests/fixtures/port_gspmd/make_fixtures.py``
+  with their draws, metrics and final states), for mmd with and without
   the witness penalty, wgan-gp, smmd and sn-smmd, each with the ResNet
   generator's BatchNorm over the global batch, and the two penalties with
   fake and real batches of different sizes (the penalty pairs rows of the
@@ -33,18 +35,17 @@ lr per update; so is the generator against JAX, as there.
 """
 
 import dataclasses
+import os
 
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.sharding import NamedSharding, PartitionSpec as P
 
 import _torch_dist
-from _torch_parity import configs, jax_draws, jax_state, port_state, rng
-from smmdax import train as jtrain
-from smmdax_torch import convert
+from _torch_parity import configs, port_state, rng
+from _torch_threads import one_torch_thread, one_torch_thread_module  # noqa: F401  (autouse)
 from smmdax_torch import train as ttrain
 
 N = 2
@@ -67,33 +68,23 @@ def _cfgs(model, gp, batch=16, real=16):
     return jcfg.replace(use_pallas="off"), tcfg
 
 
-def _initial_state(jcfg):
-    """The JAX state a case starts from: one per network pair (the losses
-    without spectral norm share their initial weights)."""
-    if not jcfg.with_sn:
-        jcfg = jcfg.replace(model="mmd", gradient_penalty=0.0)
-    return jax_state(jcfg)
-
-
 def _batches(jcfg, seed):
     return [rng(seed + i).integers(0, 256, (jcfg.dsteps + jcfg.gsteps, jcfg.real_batch_size)
                                    + jcfg.image_shape, dtype=np.uint8)
             for i in range(STEPS)]
 
 
-def _jax_run(jcfg, js, reals):
-    """JAX's GSPMD steps on a 2-device mesh: each step's draws (rebuilt
-    from the state key it starts from), metrics, and the final state."""
-    mesh = jtrain.make_mesh(N)
-    step = jtrain.jit_train_step(jcfg, jcfg.dsteps, jcfg.gsteps, mesh=mesh, mode="gspmd")
-    # replicated from the start, as the step returns it: one compile
-    state = jax.device_put(js, NamedSharding(mesh, P()))
-    noises, metrics = [], []
-    for real in reals:
-        noises.append(jax_draws(jcfg, state.rng, jcfg.dsteps, jcfg.gsteps))
-        state, m = step(state, jnp.asarray(real))
-        metrics.append({k: float(v) for k, v in m.items()})
-    return noises, metrics, jax.tree.map(np.asarray, state)
+def _reference():
+    """JAX's GSPMD runs of every case, recorded by
+    ``tests/fixtures/port_gspmd/make_fixtures.py`` (``load``)."""
+    import importlib.util
+    import sys
+    spec = importlib.util.spec_from_file_location(
+        "make_gspmd_fixtures", os.path.join(os.path.dirname(__file__), "fixtures", "port_gspmd",
+                                            "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.load(sys.modules[__name__])
 
 
 def _port_one_device(tcfg, js, reals, noises):
@@ -118,12 +109,13 @@ SELF_DRAW = dict(model="sn-smmd", gp=0.0)
 
 @pytest.fixture(scope="module")
 def suite(tmp_path_factory):
+    rec, ref = _reference()
     cases, payload_cases = [], []
     for i, case in enumerate(CASES):
         jcfg, tcfg = _cfgs(*case)
-        js = _initial_state(jcfg)
+        js = ref["initial"][rec._init_key(jcfg)]
         reals = _batches(jcfg, 30 + 10 * i)
-        noises, jm, jnext = _jax_run(jcfg, js, reals)
+        noises, jm, jnext = (ref["cases"][i][k] for k in ("noises", "metrics", "next"))
         ts = port_state(tcfg, js)
         payload_cases.append(dict(cfg=dataclasses.asdict(tcfg), gen=ts.gen.state_dict(),
                                   disc=ts.disc.state_dict(), reals=reals, noises=noises))
@@ -188,10 +180,9 @@ def test_gspmd_step_matches_jax_gspmd(suite, case):
     jcfg, nxt = c["jcfg"], c["jnext"]
     bound = _bounds(jcfg)
     _metrics_close(got["metrics"], c["jm"])
-    _close_params("disc", got["disc"], convert.flatten(nxt.d_params), bound["disc"],
-                  **PARAM_TOL)
-    _close(got["gen"], convert.flatten(nxt.g_params), rtol=0, atol=bound["gen"])
-    _close(got["gen_stats"], convert.flatten(nxt.g_batch_stats), rtol=1e-4, atol=1e-5)
+    _close_params("disc", got["disc"], nxt["d_params"], bound["disc"], **PARAM_TOL)
+    _close(got["gen"], nxt["g_params"], rtol=0, atol=bound["gen"])
+    _close(got["gen_stats"], nxt["g_batch_stats"], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)

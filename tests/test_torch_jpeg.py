@@ -3,10 +3,13 @@
 byte for byte: the committed fixtures (``tests/fixtures/port_images``, whose
 manifest of PIL's hashes is regenerated here), a seeded sweep of sizes,
 qualities, subsamplings and restart intervals, native against plain on
-small images; the layouts still refused and unknown formats raise; a
-decoder that cannot be built raises in ``make_dataset`` and is never
+small images; the fixtures of layouts once refused decode to PIL's bytes
+where PIL decodes them and raise where PIL raises; unknown formats raise;
+a decoder that cannot be built raises in ``make_dataset`` and is never
 replaced.  Progressive, CMYK / YCCK and RGB files beyond the fixtures:
-``tests/test_torch_jpeg_layouts.py``."""
+``tests/test_torch_jpeg_layouts.py``; arithmetic coding, lossless, the
+other sampling layouts, block smoothing and scan orders:
+``tests/test_torch_jpeg_arith.py``."""
 
 import hashlib
 import io
@@ -26,7 +29,8 @@ FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "port_images")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     MANIFEST = json.load(_f)["files"]
 READ = [e for e in MANIFEST if "refuse" not in e]
-REFUSED = [e for e in MANIFEST if "refuse" in e]
+# the layouts the decoder once refused; those PIL refuses too carry "refuse"
+REFUSED = [e for e in MANIFEST if e["name"].startswith("refuse_")]
 
 
 def _sha(a) -> str:
@@ -86,10 +90,22 @@ def test_fixture_decodes_to_pils_bytes(entry):
 @pytest.mark.parametrize("decode", [native.decode_jpeg, plain.decode_jpeg,
                                     timage.decode_image], ids=["native", "plain", "dispatch"])
 def test_unsupported_layouts_raise(entry, decode):
-    """Lossless, hierarchical, arithmetic, 12-bit, 4:4:0 and a progressive
-    file with unsent bits raise JPEGUnsupported, naming their ROADMAP item."""
-    with pytest.raises(plain.JPEGUnsupported, match="ROADMAP: JPEG layouts still refused"):
-        decode(_bytes(entry["name"]))
+    """The headers patched to processes and layouts PIL does not write, and
+    a progressive file cut short, held to what PIL does with them:
+    lossless over DCT data, hierarchical and 12-bit raise JPEGUnsupported
+    (saying PIL cannot decode them either) as PIL raises; Huffman data
+    read as arithmetic-coded (libjpeg's corrupt-data path), 4:4:0 and the
+    unsent bits (block smoothing) decode to PIL's recorded bytes."""
+    data = _bytes(entry["name"])
+    if "refuse" in entry:
+        with pytest.raises(plain.JPEGUnsupported, match="PIL .* cannot decode this JPEG either"):
+            decode(data)
+        with pytest.raises(Exception):
+            _pil(data)
+        return
+    got = decode(data)
+    assert got.shape == (entry["height"], entry["width"], 3)
+    assert _sha(got) == entry["rgb_sha256"]
 
 
 def _sweep_case(rng):

@@ -3,9 +3,10 @@ and the plain ``data/jpeg.py``) against PIL, byte for byte: seeded sweeps
 of progressive files (4:4:4 / 4:2:2 / 4:2:0, grey, optimized tables,
 restart intervals by blocks and rows, odd sizes), CMYK, YCCK and RGB
 files, sequential files of several scans (written by the fixtures'
-encoder), and every way an Adobe marker, a JFIF marker and the component
-ids pick the colour space; a progressive file cut after any of its scans
-decodes as PIL or is refused (when libjpeg would smooth it);
+encoder, in any order of scans and of components within them as far as
+PIL takes it), and every way an Adobe marker, a JFIF marker and the
+component ids pick the colour space; a progressive file cut after any of
+its scans decodes as PIL (smoothed where libjpeg smooths it);
 truncations and bit flips of progressive files raise or decode and never
 crash.  And the slice against the JAX package on one directory of mixed
 layouts (every readable JPEG and PNG fixture): ``compute_scores._load``
@@ -92,11 +93,14 @@ def _generator():
 def test_sequential_scans_equal_pil():
     """Sequential files whose components come in several scans (each of
     one component walking its own extent, or interleaved), in any order of
-    scans, with and without restart intervals, 1-60 px, 4:2:2 and 4:2:0;
-    a scan naming its components out of the frame's order is refused."""
+    scans, an interleaved scan's components in the frame's order or out of
+    it, with and without restart intervals, 1-60 px, 4:2:2 and 4:2:0; a
+    scan naming a component where libjpeg-turbo's get_sos cannot take it
+    raises in both decoders, as in PIL."""
     gen = _generator()
     rng = np.random.default_rng(60)
-    partitions = [[[0], [1], [2]], [[0], [1, 2]], [[0, 1], [2]], [[2], [0], [1]], [[1, 2], [0]]]
+    partitions = [[[0], [1], [2]], [[0], [1, 2]], [[0, 1], [2]], [[2], [0], [1]], [[1, 2], [0]],
+                  [[0], [2, 1]], [[2, 1], [0]]]
     for i in range(30):
         h, w = (int(v) for v in rng.integers(1, 61, 2))
         data = gen.encode_scans(_proc(rng, h, w), int(rng.integers(1, 3)),
@@ -106,8 +110,14 @@ def test_sequential_scans_equal_pil():
         if h * w <= 40 * 40:
             np.testing.assert_array_equal(plain.decode_jpeg(data), want)
     data = gen.encode_scans(_proc(rng, 20, 30), 2, [[0], [2, 1]])
+    want = _pil(data)
     for decode in (native.decode_jpeg, plain.decode_jpeg):
-        with pytest.raises(plain.JPEGUnsupported, match="another order than its frame"):
+        np.testing.assert_array_equal(decode(data), want)
+    data = gen.encode_scans(_proc(rng, 20, 30), 2, [[0, 2, 1]])
+    with pytest.raises(OSError):
+        _pil(data)
+    for decode in (native.decode_jpeg, plain.decode_jpeg):
+        with pytest.raises(plain.JPEGUnsupported, match="get_sos"):
             decode(data)
 
 
@@ -145,26 +155,19 @@ def test_colour_space_as_libjpeg_picks_it(components):
 @pytest.mark.parametrize("mode", ["RGB", "L"])
 def test_files_cut_after_each_scan(mode):
     """A progressive file cut after each of its scans (then EOI): decoded
-    to PIL's bytes where libjpeg does not smooth (DC or all the first AC
-    coefficients' bits complete), else refused in both decoders."""
+    to PIL's bytes in both decoders, libjpeg's block smoothing included
+    where the first AC coefficients still miss bits."""
     rng = np.random.default_rng(50)
     data = _jpeg(Image.fromarray(_proc(rng, 24, 32)).convert(mode), quality=80, progressive=True)
     sos = [i for i, m, _ in _generator()._segments(data) if m == 0xDA]
-    read = refused = 0
+    read = 0
     for k in range(1, len(sos) + 1):
         cut = data[:sos[k]] + b"\xff\xd9" if k < len(sos) else data
-        try:
-            got = native.decode_jpeg(cut)
-        except plain.JPEGUnsupported as e:
-            assert "ROADMAP: JPEG layouts still refused" in str(e)
-            with pytest.raises(plain.JPEGUnsupported):
-                plain.decode_jpeg(cut)
-            refused += 1
-            continue
+        got = native.decode_jpeg(cut)
         np.testing.assert_array_equal(got, _pil(cut))
         np.testing.assert_array_equal(plain.decode_jpeg(cut), got)
         read += 1
-    assert read >= 1 and refused >= 1
+    assert read == len(sos)
 
 
 def _raises_or_decodes(data: bytes) -> None:

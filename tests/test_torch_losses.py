@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from _torch_parity import configs, jax_state, port_state, rng
+from _torch_threads import one_torch_thread, one_torch_thread_module  # noqa: F401  (autouse)
 from smmdax import losses as jlosses
 from smmdax.nn import build_models as jax_build
 from smmdax_torch import convert

@@ -17,6 +17,7 @@ import torch
 
 from _torch_parity import (check_grads_per_leaf, configs, jax_float64,
                            jax_state, port_state, to_float64)
+from _torch_threads import one_torch_thread, one_torch_thread_module  # noqa: F401  (autouse)
 from smmdax import losses as jlosses
 from smmdax.nn import build_models as jax_build
 from smmdax_torch import convert

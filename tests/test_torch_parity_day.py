@@ -3,12 +3,14 @@ against the JAX package's ``tools/parity_day.py`` on the same directories,
 the port on ``device="cpu"``: blocked mode gives the same (check, status)
 list and says what is missing; the happy path (random Inception weights,
 fixture CIFAR-10, a populated reference tree, generated samples) gives the
-same list, with FID and KID equal to the JAX tool's at the tolerance
-below; ``main(["--json", ...])`` prints a parseable report; without a card
-the tool refuses the default device instead of falling back.
+same list as the JAX tool's report on the same inputs, recorded by
+``tests/fixtures/port_parity_day/make_fixtures.py`` (which runs the JAX
+tool), with FID and KID equal to its at the tolerance below;
+``main(["--json", ...])`` prints a parseable report; without a card the
+tool refuses the default device instead of falling back.
 
-FID tolerance: 48 samples of 2,048-d pool3 features leave both covariances
-of rank 47, and ``sqrtm`` of their product amplifies the float32 rounding
+FID tolerance: 16 samples of 2,048-d pool3 features leave both covariances
+of rank 15, and ``sqrtm`` of their product amplifies the float32 rounding
 by which the two Inception networks differ (their pool3 agree to ~1e-6,
 ``tests/test_torch_inception.py``).  The report prints FID to 3 decimals and
 KID to 6, so the numbers are compared at rel 1e-3 plus that rounding."""
@@ -21,11 +23,9 @@ import sys
 import numpy as np
 import pytest
 
-from smmdax_torch.eval.inception import random_state_dict
 from smmdax_torch.tools import parity_day as port_tool
 
-from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
-from tests.test_real_loaders import _write_cifar10
+from _torch_threads import one_torch_thread, one_torch_thread_module  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -65,26 +65,25 @@ def test_blocked_mode_names_every_missing_asset(tmp_path):
     assert got[0][2].startswith(f"{ref} is EMPTY")
 
 
+def _recorder():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_parity_day_fixtures", os.path.join(ROOT, "tests", "fixtures", "port_parity_day",
+                                                 "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.fixture(scope="module")
 def happy(tmp_path_factory):
     """Random weights, fixture CIFAR-10, a populated reference tree and
-    generated samples: what both tools report there."""
-    root = tmp_path_factory.mktemp("happy")
-    data_dir = str(root / "data")
-    os.makedirs(data_dir)
-    _write_cifar10(data_dir)
-    np.savez(os.path.join(data_dir, "inception_v3.npz"),
-             **random_state_dict(seed=5, include_aux=False))
-    ref = root / "reference"
-    (ref / "core").mkdir(parents=True)
-    (ref / "main.py").write_text("# reference stub\n")
-    (ref / "core" / "mmd.py").write_text("# reference stub\n")
-    samples = str(root / "gen.npy")
-    rng = np.random.default_rng(0)
-    np.save(samples, rng.uniform(-1, 1, (48, 32, 32, 3)).astype(np.float32))
-    args = (str(ref), data_dir)
-    want = jax_tool.run(*args, samples_path=samples, score_n=48)
-    got = port_tool.run(*args, samples_path=samples, score_n=48, device="cpu")
+    generated samples: what the port's tool reports there, and the JAX
+    tool's recorded report on the same inputs."""
+    rec = _recorder()
+    args, samples = rec.happy_inputs(str(tmp_path_factory.mktemp("happy")))
+    want = rec.recorded_report(args, samples)
+    got = port_tool.run(*args, samples_path=samples, score_n=rec.SCORE_N, device="cpu")
     return dict(args=args, samples=samples, want=want, got=got)
 
 

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from _torch_parity import configs, jax_draws, jax_state, port_state, rng
+from _torch_threads import one_torch_thread, one_torch_thread_module  # noqa: F401  (autouse)
 from smmdax import losses as jlosses
 from smmdax import train as jtrain
 from smmdax_torch import convert

@@ -42,6 +42,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import _torch_dist
 from _torch_parity import configs, dp_draws, jax_state, port_state, rng
+from _torch_threads import one_torch_thread, one_torch_thread_module  # noqa: F401  (autouse)
 from smmdax import losses as jlosses
 from smmdax import train as jtrain
 from smmdax.configs import Config as JConfig
