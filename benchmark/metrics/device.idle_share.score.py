@@ -1,0 +1,9 @@
+"""Share of one traced scoring event in which no operation ran on the
+card, in percent: 1 - busy / window."""
+
+
+def read(run):
+    tr = run.get("trace")
+    if run.get("kind") != "score" or not tr or not tr.get("window_s") or not tr.get("busy_s"):
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

@@ -1,0 +1,9 @@
+"""Kernel launches per macro-step: CUDA kernels (copies and fills not
+counted) in the traced window over the macro-steps it ran."""
+
+
+def read(run):
+    tr = run.get("trace")
+    if run.get("kind") != "train" or not tr or not tr.get("macro_steps"):
+        return None
+    return tr["launches"] / tr["macro_steps"]
