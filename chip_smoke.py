@@ -848,7 +848,6 @@ def run_slice(cfg, steps: int, label: str, results: dict, required,
     fails unless each kernel named in ``required`` was launched.  Returns
     (state, {kernel: launches})."""
     import torch
-    from smmdax_torch.cuda import mmd_kernel as mk
     from smmdax_torch.data import SyntheticImages, macro_batch_at
     from smmdax_torch.train import build_train_step, create_state
 
@@ -860,9 +859,7 @@ def run_slice(cfg, steps: int, label: str, results: dict, required,
     batches = [macro_batch_at(src, s, per_step, cfg.real_batch_size,
                               u8=cfg.uint8_transfer)
                for s in range(steps + 1)]
-    counters = mk.kernel_launch_counters()
-    for k in counters:
-        k.launches = 0
+    _zero_launches()
     state, metrics = step(state, batches[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -870,7 +867,7 @@ def run_slice(cfg, steps: int, label: str, results: dict, required,
         state, metrics = step(state, batches[s])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches()
     values = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in values.values()):
         fail(f"{label}: non-finite metrics {values}")
@@ -1176,7 +1173,6 @@ def run_trainer(tmp: str, results: dict, tree: str = HERE, device: str = "cuda")
     import torch
     from smmdax_torch import checkpoint
     from smmdax_torch.configs import config_from_args
-    from smmdax_torch.cuda import mmd_kernel as mk
     from smmdax_torch.trainer import Trainer
 
     def cfg_for(run: str, max_iteration: int):
@@ -1193,14 +1189,12 @@ def run_trainer(tmp: str, results: dict, tree: str = HERE, device: str = "cuda")
         score_s, save_s = [], []
         _timed(trainer_a, "_score", score_s)
         _timed(trainer_a.ckpt, "save", save_s)
-        counters = mk.kernel_launch_counters()
-        for k in counters:
-            k.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         state_a = trainer_a.train()
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in counters}
+        launches = _launches()
         rows_a = _log_rows(trainer_a)
 
         cfg_b = cfg_for("B", 12)
@@ -1366,7 +1360,6 @@ def run_toy(tmp: str, results: dict) -> dict:
     import numpy as np
     import torch
     from smmdax_torch.configs import config_from_args
-    from smmdax_torch.cuda import mmd_kernel as mk
     from smmdax_torch.trainer import Trainer
     from smmdax_torch.viz import plot_toy_frame, witness_fn
 
@@ -1387,14 +1380,12 @@ def run_toy(tmp: str, results: dict) -> dict:
         return step
 
     trainer._get_step = recording
-    counters = mk.kernel_launch_counters()
-    for k in counters:
-        k.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches()
     if dtypes != {"float32"}:
         fail(f"toy: the step received {dtypes} batches, not float32")
     missing = [k for k in ("pair_sum", "pair_sum_grad_a") if launches[k] == 0]
@@ -1730,12 +1721,52 @@ def _digest(state) -> str:
     return h.hexdigest()
 
 
-def _zero_launches():
-    from smmdax_torch.cuda import mmd_kernel as mk
-    counters = mk.kernel_launch_counters()
-    for k in counters:
-        k.launches = 0
-    return counters
+MMD_KERNELS = ("pair_sum", "pair_sum_grad_a", "pair_stats", "pair_stats_grad_a")
+
+
+def _tracing():
+    """``smmdax_torch.tracing``, or None on a tree from before it (``--tree``),
+    whose MMD wrappers counted their launches in ``.launches``."""
+    try:
+        from smmdax_torch import tracing
+    except ImportError:
+        return None
+    return tracing
+
+
+def _zero_launches() -> None:
+    """Count the MMD kernels' launches from zero: the program's counters
+    on and emptied, its spans left off, so that no timing or profile of
+    what is counted carries a span."""
+    tracing = _tracing()
+    if tracing is None:
+        from smmdax_torch.cuda import mmd_kernel as mk
+        for k in mk.kernel_launch_counters():
+            k.launches = 0
+        return
+    tracing.drain()
+    tracing.enable(spans=False)
+
+
+def _launch_counts() -> dict:
+    """The MMD kernels' launches counted so far, by kernel: the counters
+    ``mmd.<kernel>.launches``, read without emptying them."""
+    tracing = _tracing()
+    if tracing is None:
+        from smmdax_torch.cuda import mmd_kernel as mk
+        return {k.__name__: k.launches for k in mk.kernel_launch_counters()}
+    counts = tracing.counters()
+    return {k: counts.get(f"mmd.{k}.launches", 0) for k in MMD_KERNELS}
+
+
+def _launches() -> dict:
+    """The MMD kernels' launches since ``_zero_launches``, by kernel; the
+    counters go back off."""
+    launches = _launch_counts()
+    tracing = _tracing()
+    if tracing is not None:
+        tracing.disable()
+    return launches
 
 
 def _rank_probe(axis, job, rank) -> dict:
@@ -1779,7 +1810,7 @@ def _rank_timing(cfg, axis, rank, label) -> dict:
     batches = [macro_batch_at(src, s, per_step, cfg.real_batch_size, u8=True,
                               block=(rank, axis.size))
                for s in range(RANK_TIMED_STEPS + 3)]
-    counters = _zero_launches()
+    _zero_launches()
     for s in range(RANK_TIMED_STEPS + 1):
         if s == 1:
             torch.cuda.synchronize(axis.device)
@@ -1788,7 +1819,7 @@ def _rank_timing(cfg, axis, rank, label) -> dict:
         state, metrics = step(state, batches[s])
     torch.cuda.synchronize(axis.device)
     dt = (time.perf_counter() - t0) / RANK_TIMED_STEPS
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches()
     values = {k: float(v) for k, v in metrics.items()}
     # images/s of the group: the global batch (batch_size is global)
     out = dict(ms_per_macro_step=dt * 1e3,
@@ -1825,7 +1856,7 @@ def _rank_gspmd(axis, job, rank) -> dict:
         cfg = gspmd_config(dtype).replace(**WRONG_ARMS.get(wrong, {}))
         state = create_state(cfg, seed=0, device=axis.device)
         step = data_parallel_train_step(cfg, cfg.dsteps, cfg.gsteps, axis)
-        counters = _zero_launches()
+        _zero_launches()
         metrics = []
         for real, noise in zip(job["gspmd_reals"], job["gspmd_noise"][dtype]):
             noise = {k: v.to(axis.device) for k, v in noise.items()}
@@ -1833,7 +1864,7 @@ def _rank_gspmd(axis, job, rank) -> dict:
             metrics.append({k: float(v) for k, v in m.items()})
         torch.cuda.synchronize(axis.device)
         arm = dict(metrics=metrics, digest=_digest(state),
-                   launches={k.__name__: k.launches for k in counters})
+                   launches=_launches())
         if dtype == "float32" and rank == 0:
             arm["state_path"] = os.path.join(job["out"], f"gspmd_f32_{wrong or 'gspmd'}.pt")
             torch.save(checkpoint.state_dict(state), arm["state_path"])
@@ -1859,7 +1890,7 @@ def _rank_pool(axis, job, rank) -> dict:
     src = SyntheticImages(size=32, channels=3, seed=cfg.random_seed)
     pool = torch.from_numpy(materialize_u8(src, 4097, block=(rank, axis.size))).to(axis.device)
     digests = []
-    counters = _zero_launches()
+    _zero_launches()
     with deterministic_torch():
         for k in (1, 4):
             step = device_data_train_step(cfg, cfg.dsteps, cfg.gsteps, k, axis)
@@ -1869,7 +1900,7 @@ def _rank_pool(axis, job, rank) -> dict:
             torch.cuda.synchronize(axis.device)
             digests.append(_digest(state))
     return dict(pool_rows=int(pool.shape[0]), digests=digests,
-                launches={k.__name__: k.launches for k in counters})
+                launches=_launches())
 
 
 def _rank_trainer(cfg, axis, rank) -> tuple:
@@ -1896,11 +1927,11 @@ def _rank_trainer_a(axis, job, rank) -> dict:
     here = os.getcwd()
     os.chdir(cwd)
     try:
-        counters = _zero_launches()
+        _zero_launches()
         t0 = time.perf_counter()
         trainer, state, _ = _rank_trainer(multichip_config(), axis, rank)
         wall = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in counters}
+        launches = _launches()
         rows = _log_rows(trainer) if rank == 0 else None
     finally:
         os.chdir(here)
@@ -2454,7 +2485,6 @@ def run_inception_trainer(tmp: str, results: dict) -> dict:
     samples.  Returns the kernels' launches of the first run."""
     import torch
     from smmdax_torch.configs import config_from_args
-    from smmdax_torch.cuda import mmd_kernel as mk
     from smmdax_torch.eval.features import InceptionFeatures
     from smmdax_torch.trainer import Trainer
     data_dir = os.path.join(tmp, "data")
@@ -2469,14 +2499,12 @@ def run_inception_trainer(tmp: str, results: dict) -> dict:
         trainer = Trainer(cfg, device="cuda")
         score_s = []
         _timed(trainer, "_score", score_s)
-        counters = mk.kernel_launch_counters()
-        for k in counters:
-            k.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         state = trainer.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in counters}
+        launches = _launches()
         rows = [r for r in _log_rows(trainer) if "fid" in r]
         ext = trainer._extractor
         if not isinstance(ext, InceptionFeatures) or ext.name != "inception_v3":
@@ -2994,7 +3022,6 @@ def _host_fed_run(tmp: str, data_dir: str, tree: str, name: str, flags: list, st
     import torch
     from smmdax_torch import checkpoint
     from smmdax_torch.configs import config_from_args
-    from smmdax_torch.cuda import mmd_kernel as mk
     from smmdax_torch.trainer import Trainer
 
     def cfg_for(run: str, n: int):
@@ -3014,14 +3041,12 @@ def _host_fed_run(tmp: str, data_dir: str, tree: str, name: str, flags: list, st
         for j in drawn:
             if _sha256(src.decode_u8(int(j))) != crop_hashes[int(j) % len(crop_hashes)]:
                 fail(f"{name}: item {j} decodes to other bytes than PIL's")
-        counters = mk.kernel_launch_counters()
-        for k in counters:
-            k.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         state_a = trainer.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in counters}
+        launches = _launches()
         rows = _log_rows(trainer)
         cfg_b = cfg_for(f"{name}B", steps // 2)
         Trainer(cfg_b, device="cuda").train()
@@ -3084,19 +3109,16 @@ def run_celeba160(tmp: str, data_dir: str, mixed: list, results: dict, tree: str
 def _train_arm(tmp: str, data_dir: str, run: str, flags: list, steps: int) -> dict:
     import torch
     from smmdax_torch.configs import config_from_args
-    from smmdax_torch.cuda import mmd_kernel as mk
     from smmdax_torch.trainer import Trainer
     cfg = config_from_args(REHEARSAL_FLAGS + flags + _dirs(tmp, run)
                            + ["--data_dir", data_dir, "--max_iteration", str(steps)])
     trainer = Trainer(cfg, device="cuda")
-    counters = mk.kernel_launch_counters()
-    for k in counters:
-        k.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches()
     rows = _log_rows(trainer)
     _finite_rows(rows, run)
     if launches["pair_sum"] == 0:
@@ -3374,9 +3396,9 @@ def check_entry(results: dict) -> dict:
     z = torch.from_numpy(r.uniform(-1.0, 1.0, tuple(args[5].shape)).astype(np.float32)).cuda()
     with torch.no_grad():
         zeros = [float(v) for v in fn(*args)]
-        counters = _zero_launches()
+        _zero_launches()
         fused = [float(v) for v in fn(*args[:4], real, z)]
-        launches = {k.__name__: k.launches for k in counters}
+        launches = _launches()
         plain = [float(v) for v in dense(*args[:4], real, z)]
         times = []
         for i in range(ENTRY_TIMED + 3):
@@ -3427,9 +3449,9 @@ def _rank_dryrun(axis, job, rank) -> dict:
     """(c) on one card: the dry run's modes on this group's staged axis,
     the launch counters read around it."""
     from smmdax_torch import graft_entry
-    counters = _zero_launches()
+    _zero_launches()
     records = graft_entry.dryrun_multichip(axis.size, axis=axis)
-    return dict(records=records, launches={k.__name__: k.launches for k in counters})
+    return dict(records=records, launches=_launches())
 
 
 RANK_PARTS["dryrun"] = _rank_dryrun
@@ -3445,13 +3467,15 @@ class _CountedMode:
         self.fn = fn
 
     def __call__(self, ctx) -> str:
-        from smmdax_torch.cuda import mmd_kernel as mk
-        before = {k.__name__: k.launches for k in mk.kernel_launch_counters()}
+        tracing = _tracing()
+        if tracing is not None and not tracing.counting():
+            tracing.enable(spans=False)         # a spawned rank counts from here
+        before = _launch_counts()
         try:
             return self.fn(ctx)
         finally:
-            made = {k.__name__: k.launches - before[k.__name__]
-                    for k in mk.kernel_launch_counters()}
+            after = _launch_counts()
+            made = {k: after[k] - before[k] for k in MMD_KERNELS}
             ctx.metrics.setdefault(ctx.mode, {})["launches"] = ctx.axis.gather_objects(made)
 
 
@@ -3512,12 +3536,12 @@ def run_dryrun(tmp: str, results: dict, tree: str) -> dict:
     t_phase = time.perf_counter()
     entry = check_entry(results)
     # (b)
-    counters = _zero_launches()
+    _zero_launches()
     t0 = time.perf_counter()
     records = graft_entry.dryrun_multichip(1, "cuda")
     torch.cuda.synchronize()
     wall1 = time.perf_counter() - t0
-    one = {k.__name__: k.launches for k in counters}
+    one = _launches()
     _check_dryrun(records, one, "1 rank", results)
     results["dryrun"]["1 rank"]["wall_s"] = wall1
     _dense_core_modes(records, results)
@@ -3633,12 +3657,12 @@ def run_bench_in_process(flops: float, results: dict) -> dict:
     try:
         steps = _bench_macro_steps(bench)
         buf = io.StringIO()
-        counters = _zero_launches()
+        _zero_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             bench.main(["--device", "cuda"])
         wall = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in counters}
+        launches = _launches()
     finally:
         for k, v in saved.items():
             setattr(bench, k, v)
@@ -4045,12 +4069,12 @@ def _asset_run(tmp: str, data_dir: str, name: str, flags: list, source_name: str
     if type(src).__name__ != source_name or n != items:
         fail(f"{name}: the trainer's source is {type(src).__name__} of {n}, not "
              f"{source_name} of {items}")
-    counters = _zero_launches()
+    _zero_launches()
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches()
     rows = _log_rows(trainer)
     _finite_rows(rows, name)
     want = {k: v * ASSET_STEPS for k, v in ASSET_PER_MACRO_STEP.items()}

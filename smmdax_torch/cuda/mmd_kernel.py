@@ -6,25 +6,25 @@ Four hand-written CUDA kernels:
 * ``pair_sum`` (``csrc/pair_sum.cu``) replaces ``_fwd_kernel``/``_pair_sum``
   (mmd_kernel.py:141-179): S(a, b) = sum_ij mask * k(||a_i - b_j||^2)
   without a Gram matrix in device memory; one partial per 2D tile plus a
-  fixed-order second pass.
+  fixed-order second pass.  Its launches count on ``mmd.pair_sum.launches``.
 * the pair-sum gradient (``csrc/pair_sum.cu``) replaces
   ``_bwd_kernel``/``_pair_sum_grad_a`` (mmd_kernel.py:186-242):
   sum_j g_ij (a_i - b_j) [+ (add_dot/2) b_j] for a, and the same for b
   from the same sweep, times scale * c with the cotangent c read on the
   card (``pair_sum_grad``; ``pair_sum_grad_a`` is the da-only call with
-  c = 1).  Its launches count on ``pair_sum_grad_a.launches``.
+  c = 1).  Its launches count on ``mmd.pair_sum_grad_a.launches``.
 * the stats forward (``csrc/pair_stats.cu``) replaces
   ``_stats_kernel``/``_pair_stats_fwd`` (mmd_kernel.py:323-384): the row
   sums (m,), optionally the column sums (n,), and the sum of squares of the
   masked Gram block in one sweep over 2D tiles (``pair_block_stats``;
   ``pair_stats`` is the rows-only call).  Its launches count on
-  ``pair_stats.launches``.
+  ``mmd.pair_stats.launches``.
 * the stats gradient (``csrc/pair_stats.cu``) replaces
   ``_stats_bwd_kernel``/``_pair_stats_grad_a`` (mmd_kernel.py:387-452):
   dS/da and dS/db of S = sum_i u_i row_i + sum_j v_j col_j + c sum k^2 in
   one sweep, coeff = u_i + v_j + 2 c k_ij (``pair_block_stats_grad``;
   ``pair_stats_grad_a`` is the da-only call).  Its launches count on
-  ``pair_stats_grad_a.launches``.
+  ``mmd.pair_stats_grad_a.launches``.
 
 All four run on the tile engine of ``csrc/tiles.cuh``.  Bound on the
 card: launch latency at the flagship's 64 x 16 features; float32
@@ -33,10 +33,11 @@ See the sources for the design.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and uses
 its plain PyTorch version (``<wrapper>_plain``) only for a tensor on the
-CPU.  ``.launches`` of the four wrappers of ``kernel_launch_counters``
-count kernel launches, one counter per TPU kernel.  Inputs are cast to
-float32, as ``_tile_pad`` does; no padding is needed, the kernels mask
-ragged edges themselves.
+CPU.  The launch counters named above are counters of
+``smmdax_torch.tracing``, one per TPU kernel: they count launches made from
+the host while tracing is on, and ``tracing.drain()`` reads them.  Inputs
+are cast to float32, as ``_tile_pad`` does; no padding is needed, the
+kernels mask ragged edges themselves.
 
 The differentiable pieces: ``make_fused_mmd_sums``/``fused_mmd2`` (single
 device), and ``make_pair_sum``, ``make_row_stats``, ``make_pair_stats``
@@ -52,6 +53,7 @@ from typing import Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from smmdax_torch import tracing
 from smmdax_torch.cuda import build
 from smmdax_torch.kernels.kernels import DIST_EPS, _mix_rbf, _mix_rq
 from smmdax_torch.kernels.mmd import MMDSums, mmd2_from_sums
@@ -329,11 +331,8 @@ def pair_sum(a: Tensor, b: Tensor, kernel: str, params, exclude_diag: bool,
             a.data_ptr(), b.data_ptr(), ptr, ptr + 4, scratch, m, n, d, int(exclude_diag),
             _mix(kernel, params, add_dot), _stream(a))
     build.check(lib, err, "pair_sum")
-    pair_sum.launches += 1
+    tracing.count("mmd.pair_sum.launches")
     return buf[0]
-
-
-pair_sum.launches = 0
 
 
 def _sum_grad(a: Tensor, b: Tensor, c, kernel: str, params, exclude_diag: bool,
@@ -354,7 +353,7 @@ def _sum_grad(a: Tensor, b: Tensor, c, kernel: str, params, exclude_diag: bool,
             scratch, m, n, d, int(exclude_diag), float(scale),
             _mix(kernel, params, add_dot), _stream(a))
     build.check(lib, err, "pair_sum_grad")
-    pair_sum_grad_a.launches += 1
+    tracing.count("mmd.pair_sum_grad_a.launches")
     return (out[:md].view(m, d) if need_a else None,
             out[md:].view(n, d) if need_b else None)
 
@@ -391,9 +390,6 @@ def pair_sum_grad_a(a: Tensor, b: Tensor, kernel: str, params,
                      1.0)[0]
 
 
-pair_sum_grad_a.launches = 0
-
-
 def _stats_fwd(a: Tensor, b: Tensor, kernel: str, params, exclude_diag: bool,
                add_dot: float, want_cols: bool):
     """One launch of the stats forward kernel: (rows, cols or None,
@@ -410,7 +406,7 @@ def _stats_fwd(a: Tensor, b: Tensor, kernel: str, params, exclude_diag: bool,
             ptr + 4 * (m + nc), ptr + 4 * (m + nc + 1), scratch, m, n, d,
             int(exclude_diag), _mix(kernel, params, add_dot), _stream(a))
     build.check(lib, err, "pair_stats")
-    pair_stats.launches += 1
+    tracing.count("mmd.pair_stats.launches")
     return buf[:m], (buf[m:m + n] if want_cols else None), buf[m + nc]
 
 
@@ -433,7 +429,7 @@ def _stats_grad(a: Tensor, b: Tensor, u, v, c_sq: Tensor, kernel: str, params,
             part.data_ptr(), scratch, m, n, d, int(exclude_diag), float(scale),
             _mix(kernel, params, add_dot), _stream(a))
     build.check(lib, err, "pair_stats_grad_a")
-    pair_stats_grad_a.launches += 1
+    tracing.count("mmd.pair_stats_grad_a.launches")
     return (out[:md].view(m, d) if need_a else None,
             out[md:].view(n, d) if need_b else None)
 
@@ -483,9 +479,6 @@ def pair_stats(a: Tensor, b: Tensor, kernel: str, params, exclude_diag: bool,
     return rows, sq
 
 
-pair_stats.launches = 0
-
-
 def pair_stats_grad_a(a: Tensor, b: Tensor, u: Tensor, v: Tensor, c_sq: Tensor,
                       kernel: str, params, exclude_diag: bool,
                       add_dot: float = 0.0) -> Tensor:
@@ -500,14 +493,6 @@ def pair_stats_grad_a(a: Tensor, b: Tensor, u: Tensor, v: Tensor, c_sq: Tensor,
                                        exclude_diag, add_dot)
     return _stats_grad(a, b, u, v, c_sq, kernel, params, exclude_diag, add_dot,
                        True, False, 1.0)[0]
-
-
-pair_stats_grad_a.launches = 0
-
-
-def kernel_launch_counters():
-    """The four kernel wrappers, whose ``.launches`` count their launches."""
-    return (pair_sum, pair_sum_grad_a, pair_stats, pair_stats_grad_a)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from typing import Iterator, Optional, Protocol, Tuple
 
 import numpy as np
 
+from smmdax_torch import tracing
 from smmdax_torch.configs import Config
 from smmdax_torch.data.image import (DECODE_THREADS, DecodePool, center_crop_resize,
                                      decode_image)
@@ -352,17 +353,19 @@ def macro_batch_at(source, step: int, per_step: int, batch: int,
     trainer's uint8-transfer path), bit-identical to the JAX package's.
     ``block=(rank, ranks)``: that rank's (per_step, batch / ranks, ...)
     block, byte-identical to columns [rank * b, (rank + 1) * b) of the
-    whole, with only those samples built."""
+    whole, with only those samples built.  One ``data.macro_batch`` span
+    on the calling thread."""
     draw = source.batch_u8 if u8 else source.batch
-    if block is None:
-        flat = draw(per_step * batch, key=step)
-        return flat.reshape((per_step, batch) + flat.shape[1:])
-    rank, ranks = block
-    b = batch // ranks
-    rows = (np.arange(per_step)[:, None] * batch
-            + np.arange(rank * b, (rank + 1) * b)[None, :]).ravel()
-    flat = draw(per_step * batch, key=step, rows=rows)
-    return flat.reshape((per_step, b) + flat.shape[1:])
+    with tracing.span("data.macro_batch"):
+        if block is None:
+            flat = draw(per_step * batch, key=step)
+            return flat.reshape((per_step, batch) + flat.shape[1:])
+        rank, ranks = block
+        b = batch // ranks
+        rows = (np.arange(per_step)[:, None] * batch
+                + np.arange(rank * b, (rank + 1) * b)[None, :]).ravel()
+        flat = draw(per_step * batch, key=step, rows=rows)
+        return flat.reshape((per_step, b) + flat.shape[1:])
 
 
 def macro_batches(source: DataSource, per_step: int, batch: int,

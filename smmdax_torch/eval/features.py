@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from smmdax_torch import tracing
 from smmdax_torch.train import resolve_device
 
 Array = np.ndarray
@@ -164,23 +165,25 @@ def _takes_fetch(fn) -> bool:
 def extract_features(extractor: FeatureExtractor, images, fetch: bool = True):
     """``extractor(images)`` with ``fetch`` threaded when supported.
     Extractors without the flag return host arrays."""
-    if _takes_fetch(extractor.__call__):
-        return extractor(images, fetch=fetch)
-    return extractor(images)
+    with tracing.span("eval.inception"):
+        if _takes_fetch(extractor.__call__):
+            return extractor(images, fetch=fetch)
+        return extractor(images)
 
 
 def extract_with_probs(extractor: FeatureExtractor, images, fetch: bool = True):
     """(features, probs-or-None) from ONE network sweep when the extractor
     supports it; ``fetch=False`` asks for outputs left on the device."""
-    if hasattr(extractor, "features_and_probs"):
-        fn = extractor.features_and_probs
-        return fn(images, fetch=fetch) if _takes_fetch(fn) else fn(images)
-    feats = extract_features(extractor, images, fetch=fetch)
-    probs = None
-    if hasattr(extractor, "probs"):
-        fn = extractor.probs
-        probs = fn(images, fetch=fetch) if _takes_fetch(fn) else fn(images)
-    return feats, probs
+    with tracing.span("eval.inception"):
+        if hasattr(extractor, "features_and_probs"):
+            fn = extractor.features_and_probs
+            return fn(images, fetch=fetch) if _takes_fetch(fn) else fn(images)
+        feats = extract_features(extractor, images, fetch=fetch)
+        probs = None
+        if hasattr(extractor, "probs"):
+            fn = extractor.probs
+            probs = fn(images, fetch=fetch) if _takes_fetch(fn) else fn(images)
+        return feats, probs
 
 
 def find_inception_weights(data_dir: str = "./data") -> Optional[str]:

@@ -20,6 +20,9 @@ in the same order as the JAX package, so on the same features the scores
 equal the JAX package's (numpy arm) or differ from them by float32 Gram
 arithmetic (torch arm).  ``sqrtm`` of the covariance product is taken by
 eigendecomposition of the symmetrized product S1^(1/2) S2 S1^(1/2).
+
+The statistics, FID, KID, IS and the three-sample tests are spans of
+``smmdax_torch.tracing`` (``eval.*``) while tracing is on.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from smmdax_torch import tracing
 
 Array = np.ndarray
 
@@ -77,18 +82,19 @@ def gaussian_stats(feats) -> Tuple[Array, Array]:
     A tensor's covariance is computed where it lives (two-pass centered
     form, float32 with TF32 off) and only the O(d^2) statistics come back;
     numpy inputs keep the float64 path."""
-    if isinstance(feats, torch.Tensor):
-        x = feats.detach().float()
-        mu = x.mean(dim=0)
-        xc = x - mu
-        with _no_tf32():
-            sigma = (xc.T @ xc) / (len(x) - 1)
-        return (mu.cpu().numpy().astype(np.float64),
-                sigma.cpu().numpy().astype(np.float64))
-    feats = np.asarray(feats, np.float64)
-    mu = feats.mean(axis=0)
-    sigma = np.cov(feats, rowvar=False)
-    return mu, sigma
+    with tracing.span("eval.gaussian_stats"):
+        if isinstance(feats, torch.Tensor):
+            x = feats.detach().float()
+            mu = x.mean(dim=0)
+            xc = x - mu
+            with _no_tf32():
+                sigma = (xc.T @ xc) / (len(x) - 1)
+            return (mu.cpu().numpy().astype(np.float64),
+                    sigma.cpu().numpy().astype(np.float64))
+        feats = np.asarray(feats, np.float64)
+        mu = feats.mean(axis=0)
+        sigma = np.cov(feats, rowvar=False)
+        return mu, sigma
 
 
 _ROOT_CACHE: dict = {}     # id(sigma) -> (sigma ref, sigma^(1/2))
@@ -117,10 +123,11 @@ def _sqrt_eigvals_of_product(s1: Array, s2: Array, eps: float = 1e-10) -> Array:
 def frechet_distance(mu1: Array, sigma1: Array,
                      mu2: Array, sigma2: Array) -> float:
     """||mu1-mu2||^2 + tr(s1 + s2 - 2 sqrtm(s1 s2))."""
-    diff = mu1 - mu2
-    covmean_trace = float(np.sum(_sqrt_eigvals_of_product(sigma1, sigma2)))
-    return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2)
-                 - 2.0 * covmean_trace)
+    with tracing.span("eval.frechet"):
+        diff = mu1 - mu2
+        covmean_trace = float(np.sum(_sqrt_eigvals_of_product(sigma1, sigma2)))
+        return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2)
+                     - 2.0 * covmean_trace)
 
 
 def fid_from_features(feats_real, feats_fake) -> float:
@@ -229,23 +236,24 @@ def kid_from_features(feats_real, feats_fake, subset_size: int = 1000,
                       backend: str = "auto") -> Tuple[float, float]:
     """KID: polynomial MMD^2 averaged over random subsets (the
     reference's ``polynomial_mmd_averages``).  Returns (mean, std)."""
-    rng = np.random.default_rng(seed)
-    m = min(subset_size, len(feats_real), len(feats_fake))
-    idx_r, idx_f = [], []
-    for _ in range(n_subsets):
-        idx_r.append(rng.choice(len(feats_real), m, replace=False))
-        idx_f.append(rng.choice(len(feats_fake), m, replace=False))
-    if _resolve_backend(backend, feats_real, feats_fake) == "torch":
-        s_xx, s_yy, s_xy = _kid_sums(feats_real, feats_fake, idx_r, idx_f)
-        vals = (s_xx / (m * (m - 1)) + s_yy / (m * (m - 1))
-                - 2.0 * s_xy / (m * m))
-    else:
-        feats_real, feats_fake = _as_numpy(feats_real), _as_numpy(feats_fake)
-        vals = np.empty(n_subsets)
-        for i in range(n_subsets):
-            vals[i] = polynomial_mmd(feats_real[idx_r[i]],
-                                     feats_fake[idx_f[i]])
-    return float(vals.mean()), float(vals.std())
+    with tracing.span("eval.kid"):
+        rng = np.random.default_rng(seed)
+        m = min(subset_size, len(feats_real), len(feats_fake))
+        idx_r, idx_f = [], []
+        for _ in range(n_subsets):
+            idx_r.append(rng.choice(len(feats_real), m, replace=False))
+            idx_f.append(rng.choice(len(feats_fake), m, replace=False))
+        if _resolve_backend(backend, feats_real, feats_fake) == "torch":
+            s_xx, s_yy, s_xy = _kid_sums(feats_real, feats_fake, idx_r, idx_f)
+            vals = (s_xx / (m * (m - 1)) + s_yy / (m * (m - 1))
+                    - 2.0 * s_xy / (m * m))
+        else:
+            feats_real, feats_fake = _as_numpy(feats_real), _as_numpy(feats_fake)
+            vals = np.empty(n_subsets)
+            for i in range(n_subsets):
+                vals[i] = polynomial_mmd(feats_real[idx_r[i]],
+                                         feats_fake[idx_f[i]])
+        return float(vals.mean()), float(vals.std())
 
 
 def inception_score(probs, n_splits: int = 10) -> Tuple[float, float]:
@@ -253,25 +261,26 @@ def inception_score(probs, n_splits: int = 10) -> Tuple[float, float]:
 
     A tensor stays where it lives (float32) and only the per-split
     scalars come back; numpy inputs are computed in float64."""
-    on_device = isinstance(probs, torch.Tensor)
-    if on_device:
-        probs = probs.detach().float()
-    else:
-        probs = np.asarray(probs, np.float64)
-    xp = torch if on_device else np
-    scores = []
-    n = len(probs)
-    for i in range(n_splits):
-        part = probs[i * n // n_splits:(i + 1) * n // n_splits]
-        if len(part) == 0:
-            continue
-        py = part.mean(0)[None]
-        kl = part * (xp.log(part + 1e-12) - xp.log(py + 1e-12))
-        scores.append(xp.exp(kl.sum(1).mean()))
-    if on_device:
-        scores = torch.stack(scores).double().cpu().numpy()   # one fetch
-    scores = np.asarray(scores, np.float64)
-    return float(scores.mean()), float(scores.std())
+    with tracing.span("eval.is"):
+        on_device = isinstance(probs, torch.Tensor)
+        if on_device:
+            probs = probs.detach().float()
+        else:
+            probs = np.asarray(probs, np.float64)
+        xp = torch if on_device else np
+        scores = []
+        n = len(probs)
+        for i in range(n_splits):
+            part = probs[i * n // n_splits:(i + 1) * n // n_splits]
+            if len(part) == 0:
+                continue
+            py = part.mean(0)[None]
+            kl = part * (xp.log(part + 1e-12) - xp.log(py + 1e-12))
+            scores.append(xp.exp(kl.sum(1).mean()))
+        if on_device:
+            scores = torch.stack(scores).double().cpu().numpy()   # one fetch
+        scores = np.asarray(scores, np.float64)
+        return float(scores.mean()), float(scores.std())
 
 
 def _norm_cdf(x: float) -> float:
@@ -423,43 +432,44 @@ def relative_mmd_test(feats_ref, feats_a, feats_b, subset_size: int = 1000,
     of dependent p-values, not a calibrated p-value).  The returned t is
     always the subset-mean of the t statistics.
     """
-    if combine not in ("fisher", "mean"):
-        raise ValueError(f"combine must be fisher or mean, got {combine!r}")
-    m = min(subset_size, len(feats_ref), len(feats_a), len(feats_b))
-    rng = np.random.default_rng(seed)
-    idx_x, idx_y, idx_z = _three_sample_draws(rng, n_subsets, m, len(feats_ref),
-                                              len(feats_a), len(feats_b))
-    if _resolve_backend(backend, feats_ref, feats_a, feats_b) == "torch":
-        prims = _rel_sums(feats_ref, feats_a, feats_b, idx_x, idx_y, idx_z)
-        stats = [_rel_finish([p[i] for p in prims], m, m, m)
-                 for i in range(n_subsets)]
-    else:
-        feats_ref, feats_a, feats_b = map(_as_numpy, (feats_ref, feats_a, feats_b))
-        stats = []
-        for i in range(n_subsets):
-            x = feats_ref[idx_x[i]]
-            y = feats_a[idx_y[i]]
-            z = feats_b[idx_z[i]]
-            stats.append(_rel_finish(_rel_primitives(
-                _poly_kernel(y, y), _poly_kernel(z, z),
-                _poly_kernel(x, y), _poly_kernel(x, z)), m, m, m))
+    with tracing.span("eval.three_sample_test"):
+        if combine not in ("fisher", "mean"):
+            raise ValueError(f"combine must be fisher or mean, got {combine!r}")
+        m = min(subset_size, len(feats_ref), len(feats_a), len(feats_b))
+        rng = np.random.default_rng(seed)
+        idx_x, idx_y, idx_z = _three_sample_draws(rng, n_subsets, m, len(feats_ref),
+                                                  len(feats_a), len(feats_b))
+        if _resolve_backend(backend, feats_ref, feats_a, feats_b) == "torch":
+            prims = _rel_sums(feats_ref, feats_a, feats_b, idx_x, idx_y, idx_z)
+            stats = [_rel_finish([p[i] for p in prims], m, m, m)
+                     for i in range(n_subsets)]
+        else:
+            feats_ref, feats_a, feats_b = map(_as_numpy, (feats_ref, feats_a, feats_b))
+            stats = []
+            for i in range(n_subsets):
+                x = feats_ref[idx_x[i]]
+                y = feats_a[idx_y[i]]
+                z = feats_b[idx_z[i]]
+                stats.append(_rel_finish(_rel_primitives(
+                    _poly_kernel(y, y), _poly_kernel(z, z),
+                    _poly_kernel(x, y), _poly_kernel(x, z)), m, m, m))
 
-    ps, ts = [], []
-    # diff = MMD^2(X,Z) - MMD^2(X,Y): positive favors A (= Y, the current
-    # samples); the common K_XX term cancels in the difference
-    for diff, var in stats:
-        if var <= 1e-12:
-            # degenerate variance estimate: inconclusive, not infinitely
-            # significant — never divide by the clamp floor
-            ts.append(0.0)
-            ps.append(0.5)
-            continue
-        t = float(diff / np.sqrt(var))
-        ts.append(t)
-        ps.append(1.0 - _norm_cdf(t))
-    if combine == "fisher" and len(ps) > 1:
-        return fisher_combine(ps), float(np.mean(ts))
-    return float(np.mean(ps)), float(np.mean(ts))
+        ps, ts = [], []
+        # diff = MMD^2(X,Z) - MMD^2(X,Y): positive favors A (= Y, the current
+        # samples); the common K_XX term cancels in the difference
+        for diff, var in stats:
+            if var <= 1e-12:
+                # degenerate variance estimate: inconclusive, not infinitely
+                # significant — never divide by the clamp floor
+                ts.append(0.0)
+                ps.append(0.5)
+                continue
+            t = float(diff / np.sqrt(var))
+            ts.append(t)
+            ps.append(1.0 - _norm_cdf(t))
+        if combine == "fisher" and len(ps) > 1:
+            return fisher_combine(ps), float(np.mean(ts))
+        return float(np.mean(ps)), float(np.mean(ts))
 
 
 def relative_similarity_test(feats_ref, feats_a, feats_b, subset_size: int = 1000,
@@ -468,23 +478,24 @@ def relative_similarity_test(feats_ref, feats_a, feats_b, subset_size: int = 100
     """Fraction of subset draws where candidate A (current samples) is
     CLOSER to the reference than B (best-checkpoint samples) by KID's
     MMD^2; > 0.5 means A improved on B (the scheduler's vote arm)."""
-    rng = np.random.default_rng(seed)
-    m = min(subset_size, len(feats_ref), len(feats_a), len(feats_b))
-    idx_x, idx_y, idx_z = _three_sample_draws(rng, n_subsets, m, len(feats_ref),
-                                              len(feats_a), len(feats_b))
-    if _resolve_backend(backend, feats_ref, feats_a, feats_b) == "torch":
-        s_rr, s_aa, s_ra, s_bb, s_rb = _vote_sums(feats_ref, feats_a, feats_b,
-                                                  idx_x, idx_y, idx_z)
-        off = m * (m - 1)
-        mmd_a = s_rr / off + s_aa / off - 2.0 * s_ra / (m * m)
-        mmd_b = s_rr / off + s_bb / off - 2.0 * s_rb / (m * m)
-        return float((mmd_a < mmd_b).mean())
-    feats_ref, feats_a, feats_b = map(_as_numpy, (feats_ref, feats_a, feats_b))
-    wins = 0
-    for i in range(n_subsets):
-        r = feats_ref[idx_x[i]]
-        a = feats_a[idx_y[i]]
-        b = feats_b[idx_z[i]]
-        if polynomial_mmd(r, a) < polynomial_mmd(r, b):
-            wins += 1
-    return wins / n_subsets
+    with tracing.span("eval.three_sample_test"):
+        rng = np.random.default_rng(seed)
+        m = min(subset_size, len(feats_ref), len(feats_a), len(feats_b))
+        idx_x, idx_y, idx_z = _three_sample_draws(rng, n_subsets, m, len(feats_ref),
+                                                  len(feats_a), len(feats_b))
+        if _resolve_backend(backend, feats_ref, feats_a, feats_b) == "torch":
+            s_rr, s_aa, s_ra, s_bb, s_rb = _vote_sums(feats_ref, feats_a, feats_b,
+                                                      idx_x, idx_y, idx_z)
+            off = m * (m - 1)
+            mmd_a = s_rr / off + s_aa / off - 2.0 * s_ra / (m * m)
+            mmd_b = s_rr / off + s_bb / off - 2.0 * s_rb / (m * m)
+            return float((mmd_a < mmd_b).mean())
+        feats_ref, feats_a, feats_b = map(_as_numpy, (feats_ref, feats_a, feats_b))
+        wins = 0
+        for i in range(n_subsets):
+            r = feats_ref[idx_x[i]]
+            a = feats_a[idx_y[i]]
+            b = feats_b[idx_z[i]]
+            if polynomial_mmd(r, a) < polynomial_mmd(r, b):
+                wins += 1
+        return wins / n_subsets

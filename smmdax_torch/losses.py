@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from smmdax_torch import tracing
 from smmdax_torch.configs import Config
 from smmdax_torch.cuda.dispatch import should_use_pallas
 from smmdax_torch.cuda.mmd_kernel import fused_mmd2
@@ -122,6 +123,12 @@ def mmd2_objective(cfg: Config, f_fake: Tensor, f_real: Tensor,
     * otherwise the gathered features through the fused CUDA pair sums
       when dispatched (``use_pallas``), else the dense Gram blocks (the
       oracle path)."""
+    with tracing.span("losses.mmd"):
+        return _mmd2_objective(cfg, f_fake, f_real, axis)
+
+
+def _mmd2_objective(cfg: Config, f_fake: Tensor, f_real: Tensor,
+                    axis: Optional[DataAxis]) -> Tensor:
     if axis is not None and not cfg.global_batch_mmd:
         if _fused(cfg, f_fake, f_real, axis):
             local = fused_mmd2(f_fake, f_real, cfg.kernel, _kernel_params(cfg),
@@ -169,6 +176,12 @@ def sobolev_scale(cfg: Config, critic: Critic, real: Tensor,
     ``probe``: the (dof_dim,) Rademacher vector of the hutchinson
     estimator.  ``create_graph=False`` gives a constant sigma (the
     generator step's stop-gradient)."""
+    with tracing.span("losses.sigma"):
+        return _sobolev_scale(cfg, critic, real, probe, create_graph)
+
+
+def _sobolev_scale(cfg: Config, critic: Critic, real: Tensor, probe: Optional[Tensor],
+                   create_graph: bool) -> Tensor:
     est = cfg.scaling_grad_estimator
     if est == "exact" and cfg.remat:
         # row k of every sample's Jacobian is d(sum_b f_b[k])/dx: the

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smmdax_torch import tracing
 from smmdax_torch.kernels.kernels import at_least_f32
 
 Tensor = torch.Tensor
@@ -103,14 +104,15 @@ class _SNMixin:
         w = self.weight
         if not self.use_sn:
             return w
-        # (rows, out): the JAX kernel's reshape(-1, out) up to a row order
-        # that sigma does not depend on
-        w_mat = w.reshape(w.shape[0], -1).T
-        sigma, new_u = power_iteration(w_mat, self.u, self.sn_iters)
-        if update_sn:
-            with torch.no_grad():
-                self.u.copy_(new_u)
-        return w / sigma
+        with tracing.span("nn.spectral"):
+            # (rows, out): the JAX kernel's reshape(-1, out) up to a row
+            # order that sigma does not depend on
+            w_mat = w.reshape(w.shape[0], -1).T
+            sigma, new_u = power_iteration(w_mat, self.u, self.sn_iters)
+            if update_sn:
+                with torch.no_grad():
+                    self.u.copy_(new_u)
+            return w / sigma
 
 
 class SNDense(nn.Module, _SNMixin):

@@ -25,7 +25,10 @@ signal", rank 0's decision broadcast, each rank's small object gathered)
 runs over a gloo group of its own on CPU tensors, so it never waits on the
 card's stream.  The transport of each collective is a method of
 ``DataAxis`` (``_all_reduce``, ``_all_gather``, ``_reduce_scatter``,
-``_shift``), so a subclass may carry the tensors another way.
+``_shift``), so a subclass may carry the tensors another way.  Each
+collective is a span of ``smmdax_torch.tracing`` (``dp.all_reduce``,
+``dp.all_gather``, ``dp.reduce_scatter``, ``dp.shift``) and adds its
+input's bytes to the counter ``dp.bytes``, while tracing is on.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from smmdax_torch import tracing
 
 Tensor = torch.Tensor
 
@@ -111,7 +116,8 @@ class DataAxis:
         pad = torch.zeros((top - x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
         with torch.no_grad():
-            full = self._all_gather(torch.cat([x, pad]).to(self.device)).to(x.device)
+            full = _collective("dp.all_gather", self._all_gather,
+                               torch.cat([x, pad]).to(self.device)).to(x.device)
         return torch.cat([full[r * top:r * top + b] for r, b in enumerate(sizes)])
 
     def close(self) -> None:
@@ -199,11 +205,19 @@ def init_data_axis(device, rank: int = 0, world_size: int = 1,
 # the collectives and their transposes
 
 
+def _collective(name: str, transport, x: Tensor, *args) -> Tensor:
+    """``transport(x, *args)`` as the span ``name``, its payload counted."""
+    if tracing.counting():
+        tracing.count("dp.bytes", x.numel() * x.element_size())
+    with tracing.span(name):
+        return transport(x, *args)
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return axis._all_reduce(x)
+        return _collective("dp.all_reduce", axis._all_reduce, x)
 
     @staticmethod
     def backward(ctx, ct):
@@ -214,7 +228,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return axis._all_gather(x)
+        return _collective("dp.all_gather", axis._all_gather, x)
 
     @staticmethod
     def backward(ctx, ct):
@@ -228,7 +242,7 @@ class _ReduceScatter(torch.autograd.Function):
             raise ValueError(f"dim 0 of {tuple(x.shape)} does not split "
                              f"over {axis.size} ranks")
         ctx.axis = axis
-        return axis._reduce_scatter(x)
+        return _collective("dp.reduce_scatter", axis._reduce_scatter, x)
 
     @staticmethod
     def backward(ctx, ct):
@@ -239,7 +253,7 @@ class _Shift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, step):
         ctx.axis, ctx.step = axis, step
-        return axis._shift(x, step)
+        return _collective("dp.shift", axis._shift, x, step)
 
     @staticmethod
     def backward(ctx, ct):

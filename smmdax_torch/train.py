@@ -64,6 +64,9 @@ checkpointing (``critic_fn``), the counterpart of ``jax.checkpoint`` in
 the JAX package's ``_critic_fn``: its activations are recomputed in the
 backward passes instead of kept.  It changes memory, not values.
 
+The step's phases are spans of ``smmdax_torch.tracing`` (``train.*``),
+recorded only while tracing is on.
+
 ``macro_step_flops`` and ``sample_flops`` count the FLOPs of a macro-step
 and of ``sample`` for the bench's MFU (``smmdax_torch.bench``), from
 torch's formulas over one eager call; ``macro_step_flops`` gives the basis
@@ -84,6 +87,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 from torch.utils.flop_counter import flop_registry
 
+from smmdax_torch import tracing
 from smmdax_torch.configs import Config
 from smmdax_torch.data.transforms import normalize_uint8
 from smmdax_torch.losses import LossAux, critic_loss, generator_loss
@@ -282,45 +286,56 @@ def _d_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
               probe: Optional[Tensor], eps: Optional[Tensor],
               axis: Optional[DataAxis] = None,
               bn_axis: Optional[DataAxis] = None) -> LossAux:
-    with torch.no_grad():
-        fake = _generate(state.gen, z, update_stats=False, bn_axis=bn_axis)
-    _refresh_spectral(cfg, state.disc, real.device)
-    pairs = None
-    # bn_axis is set in GSPMD mode only
-    if eps is not None and bn_axis is not None and real.shape[0] != fake.shape[0]:
-        pairs = _penalty_pairs(real, fake, bn_axis)
-    loss, aux = critic_loss(cfg, critic_fn(cfg, state.disc), real, fake, probe=probe,
-                            eps=eps, axis=axis, pairs=pairs)
-    grads = torch.autograd.grad(loss, list(state.disc.parameters()))
-    _pmean_(grads, axis)
-    _apply_update(cfg, state.disc, grads, state.d_opt, state.lr_d)
+    with tracing.span("train.d_update"):
+        with tracing.span("train.d_generate"), torch.no_grad():
+            fake = _generate(state.gen, z, update_stats=False, bn_axis=bn_axis)
+        with tracing.span("train.sn_refresh"):
+            _refresh_spectral(cfg, state.disc, real.device)
+        with tracing.span("train.d_loss"):
+            pairs = None
+            # bn_axis is set in GSPMD mode only
+            if eps is not None and bn_axis is not None and real.shape[0] != fake.shape[0]:
+                pairs = _penalty_pairs(real, fake, bn_axis)
+            loss, aux = critic_loss(cfg, critic_fn(cfg, state.disc), real, fake, probe=probe,
+                                    eps=eps, axis=axis, pairs=pairs)
+        with tracing.span("train.d_grad"):
+            grads = torch.autograd.grad(loss, list(state.disc.parameters()))
+            _pmean_(grads, axis)
+        with tracing.span("train.d_adam"):
+            _apply_update(cfg, state.disc, grads, state.d_opt, state.lr_d)
     return aux
 
 
 def _g_update(cfg: Config, state: TrainState, real: Tensor, z: Tensor,
               probe: Optional[Tensor], axis: Optional[DataAxis] = None,
               bn_axis: Optional[DataAxis] = None) -> LossAux:
-    with _frozen(state.disc):
-        fake = _generate(state.gen, z, update_stats=True, bn_axis=bn_axis)
-        loss, aux = generator_loss(cfg, critic_fn(cfg, state.disc), real, fake,
-                                   probe=probe, axis=axis)
-        grads = torch.autograd.grad(loss, list(state.gen.parameters()))
-    _pmean_(grads, axis)
-    if bn_axis is None:
-        # each rank normalised with its own block's statistics; the running
-        # averages are pmean'd so the state stays replicated (with the
-        # global statistics they are equal on every rank already)
-        _pmean_([b for _, b in state.gen.named_buffers()], axis)
-    _apply_update(cfg, state.gen, grads, state.g_opt, state.lr_g)
-    if cfg.ema_decay > 0:
-        if state.g_params_ema is None or state.g_stats_ema is None:
-            raise ValueError(
-                f"cfg.ema_decay={cfg.ema_decay} but the TrainState EMA "
-                "shadows are missing: build the state with create_state(cfg)")
-        _ema_update(cfg.ema_decay, state.g_params_ema,
-                    dict(state.gen.named_parameters()))
-        _ema_update(cfg.ema_decay, state.g_stats_ema,
-                    dict(state.gen.named_buffers()))
+    with tracing.span("train.g_update"):
+        with _frozen(state.disc):
+            with tracing.span("train.g_loss"):
+                fake = _generate(state.gen, z, update_stats=True, bn_axis=bn_axis)
+                loss, aux = generator_loss(cfg, critic_fn(cfg, state.disc), real, fake,
+                                           probe=probe, axis=axis)
+            with tracing.span("train.g_grad"):
+                grads = torch.autograd.grad(loss, list(state.gen.parameters()))
+                _pmean_(grads, axis)
+        with tracing.span("train.g_adam"):
+            if bn_axis is None:
+                # each rank normalised with its own block's statistics; the
+                # running averages are pmean'd so the state stays replicated
+                # (with the global statistics they are equal on every rank
+                # already)
+                _pmean_([b for _, b in state.gen.named_buffers()], axis)
+            _apply_update(cfg, state.gen, grads, state.g_opt, state.lr_g)
+        if cfg.ema_decay > 0:
+            if state.g_params_ema is None or state.g_stats_ema is None:
+                raise ValueError(
+                    f"cfg.ema_decay={cfg.ema_decay} but the TrainState EMA "
+                    "shadows are missing: build the state with create_state(cfg)")
+            with tracing.span("train.ema"):
+                _ema_update(cfg.ema_decay, state.g_params_ema,
+                            dict(state.gen.named_parameters()))
+                _ema_update(cfg.ema_decay, state.g_stats_ema,
+                            dict(state.gen.named_buffers()))
     return aux
 
 
@@ -430,14 +445,16 @@ def build_train_step(cfg: Config, dsteps: int, gsteps: int,
 
     def _macro_step(state: TrainState, real, noise: Optional[Noise]):
         dev = state.device
-        real = torch.as_tensor(real).to(dev)
-        if real.dtype == torch.uint8:
-            real = normalize_uint8(real)
+        with tracing.span("train.h2d"):
+            real = torch.as_tensor(real).to(dev)
+            if real.dtype == torch.uint8:
+                real = normalize_uint8(real)
         if real.shape[0] != dsteps + gsteps:
             raise ValueError(f"real carries {real.shape[0]} updates' batches, "
                              f"the step runs {dsteps} + {gsteps}")
         if noise is None:
-            noise = draw_noise(cfg, state, dsteps, gsteps, draw_axis)
+            with tracing.span("train.noise"):
+                noise = draw_noise(cfg, state, dsteps, gsteps, draw_axis)
         else:
             noise = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
                      for k, v in noise.items()}
@@ -562,20 +579,28 @@ def dispatch_train_step(cfg: Config, dsteps: int, gsteps: int,
     macro-step's.  The macro-steps run one after another, so the state is
     bit-identical to k calls of ``build_train_step``.  With ``axis``,
     ``real`` is this rank's block (B / ranks rows) and the step runs in
-    ``cfg.dp_mode``."""
+    ``cfg.dp_mode``.  Each call is one ``train.dispatch`` span
+    (``smmdax_torch.tracing``)."""
     axis = check_ranks(cfg, axis)
     step = build_train_step(cfg, dsteps, gsteps, axis=axis)
     k = steps_per_dispatch
+
     if k == 1:
-        return step
+        def single(state: TrainState, real, noise: Optional[Noise] = None):
+            with tracing.span("train.dispatch"):
+                return step(state, real, noise)
+
+        return single
 
     def multi(state: TrainState, reals):
-        reals = torch.as_tensor(reals).to(state.device)
-        if reals.shape[0] != k:
-            raise ValueError(f"a dispatch of {k} macro-steps got {reals.shape[0]} batches")
-        for real in reals:
-            state, metrics = step(state, real)
-        return state, metrics
+        with tracing.span("train.dispatch"):
+            with tracing.span("train.h2d"):
+                reals = torch.as_tensor(reals).to(state.device)
+            if reals.shape[0] != k:
+                raise ValueError(f"a dispatch of {k} macro-steps got {reals.shape[0]} batches")
+            for real in reals:
+                state, metrics = step(state, real)
+            return state, metrics
 
     return multi
 
@@ -803,14 +828,15 @@ def sample(cfg: Config, state: TrainState, generator: torch.Generator, n: int,
     lo, hi = (0, n) if rows is None else rows
     if lo % bs or not 0 <= lo <= hi <= n:
         raise ValueError(f"rows {rows} of {n} samples in batches of {bs}")
-    zs = [torch.rand((bs, cfg.z_dim), generator=generator, device=state.device) * 2.0 - 1.0
-          for _ in range(-(-n // bs))]
-    chunks = [torch.empty((0,) + cfg.image_shape, device=state.device)]
-    with torch.no_grad():
-        for z in zs[lo // bs:-(-hi // bs)]:
-            chunks.append(torch.func.functional_call(
-                state.gen, weights, (z,), {"train": False}))
-    return torch.cat(chunks)[:hi - lo]
+    with tracing.span("train.sample"):
+        zs = [torch.rand((bs, cfg.z_dim), generator=generator, device=state.device) * 2.0 - 1.0
+              for _ in range(-(-n // bs))]
+        chunks = [torch.empty((0,) + cfg.image_shape, device=state.device)]
+        with torch.no_grad():
+            for z in zs[lo // bs:-(-hi // bs)]:
+                chunks.append(torch.func.functional_call(
+                    state.gen, weights, (z,), {"train": False}))
+        return torch.cat(chunks)[:hi - lo]
 
 
 def interpolate(cfg: Config, state: TrainState, generator: torch.Generator,

@@ -48,6 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from smmdax_torch import tracing
 from smmdax_torch.checkpoint import CheckpointManager
 from smmdax_torch.configs import Config
 from smmdax_torch.data.pipeline import macro_batch_at, make_dataset, materialize_u8
@@ -129,6 +130,7 @@ class Trainer:
         self._best_feats = None
         self._best_kid: float = float("inf")
         self._profiler = None
+        self._tracing_was = (False, False)     # (spans, counters) before the profiler window
 
     # ------------------------------------------------------------------
     def _dsteps_at(self, step: int) -> int:
@@ -502,15 +504,16 @@ class Trainer:
                 batch = self._dev_data
             else:
                 parts, warm = [], None
-                for i in range(k_eff):
-                    # bounded: a producer killed by a data error fails here
-                    s, (w, b) = q.get(timeout=600)
-                    if s != step + i or (warm is not None and warm != w):
-                        raise RuntimeError(f"batch of step {s} (warm-up {w}) where "
-                                           f"step {step + i} (warm-up {warm}) was due")
-                    warm = w
-                    parts.append(b)
-                batch = parts[0] if k_eff == 1 else np.stack(parts)
+                with tracing.span("trainer.wait_batch"):
+                    for i in range(k_eff):
+                        # bounded: a producer killed by a data error fails here
+                        s, (w, b) = q.get(timeout=600)
+                        if s != step + i or (warm is not None and warm != w):
+                            raise RuntimeError(f"batch of step {s} (warm-up {w}) where "
+                                               f"step {step + i} (warm-up {warm}) was due")
+                        warm = w
+                        parts.append(b)
+                    batch = parts[0] if k_eff == 1 else np.stack(parts)
             dsteps = cfg.start_dsteps if warm else cfg.dsteps
             step_fn = self._get_step(dsteps, k_eff)
             if cfg.profile_steps and step == cfg.profile_start and self.main:
@@ -529,9 +532,10 @@ class Trainer:
 
             if (cfg.log_every and step % cfg.log_every == 0) or step == cfg.max_iteration:
                 if self.main:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m["images_per_sec"] = timer.rate()
-                    self.writer.write(step, m)
+                    with tracing.span("trainer.log"):
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m["images_per_sec"] = timer.rate()
+                        self.writer.write(step, m)
                 timer.reset()
                 if cfg.rss_limit_gb and self._rss_gb() > cfg.rss_limit_gb:
                     # trip the graceful preemption path before the OOM
@@ -542,13 +546,16 @@ class Trainer:
                     self._preempted = True
 
             if cfg.sample_every and step % cfg.sample_every == 0 and self.main:
-                self._save_samples(step)
+                with tracing.span("trainer.samples"):
+                    self._save_samples(step)
 
             if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
-                self.ckpt.save(step, self.state)
+                with tracing.span("trainer.checkpoint"):
+                    self.ckpt.save(step, self.state)
 
             if cfg.compute_scores and cfg.score_every and step % cfg.score_every == 0:
-                self.writer.write(step, self._score(step))
+                with tracing.span("trainer.score"):
+                    self.writer.write(step, self._score(step))
 
     @staticmethod
     def _check_finite(step: int, metrics: Dict[str, torch.Tensor]) -> None:
@@ -560,18 +567,30 @@ class Trainer:
             raise FloatingPointError(f"non-finite metrics after step {step}: {bad}")
 
     def _start_profiler(self) -> None:
+        """Open the profiler window with program tracing on, so that the
+        trace carries the program's spans (``smmdax_torch.tracing``)."""
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         self._profiler = profile(activities=acts)
         self._profiler.__enter__()
+        self._tracing_was = (tracing.enabled(), tracing.counting())
+        tracing.enable()
 
     def _stop_profiler(self) -> None:
         """Close the profiler window and write its Chrome trace under
-        log_dir/profile/<run_name>."""
+        log_dir/profile/<run_name>.  Tracing goes back to what a caller had
+        on; with nothing on, its records are dropped (the trace holds the
+        spans)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        spans_on, counting_on = self._tracing_was
+        if not counting_on:
+            tracing.disable()
+            tracing.drain()
+        elif not spans_on:
+            tracing.enable(spans=False)
         prof, self._profiler = self._profiler, None
         prof.__exit__(None, None, None)
         out = os.path.join(self.cfg.log_dir, "profile", self.cfg.run_name())

@@ -338,5 +338,26 @@ def dryrun_suite(axis, payload):
     return dict(records=records, printed=out.getvalue())
 
 
+def tracing_suite(axis, payload):
+    """Each collective once under program tracing: the drained span names,
+    the counters, and the payload bytes they should count."""
+    from smmdax_torch import tracing
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3) + axis.index
+    tracing.enable()
+    try:
+        axis.psum(x)
+        gathered = axis.all_gather(x.clone().requires_grad_())
+        axis.ppermute_next(x)
+        gathered.sum().backward()             # the gather's transpose: a reduce-scatter
+        axis.all_gather_rows(x[:axis.index + 1])
+    finally:
+        tracing.disable()
+    spans, counters = tracing.drain()
+    top = axis.size                            # all_gather_rows pads to the longest block
+    expect = 4 * (3 * x.numel() + axis.size * x.numel() + top * 3)
+    return [s.name for s in spans], counters, expect
+
+
 TASKS = {"ring_suite": ring_suite, "dp_suite": dp_suite, "gspmd_suite": gspmd_suite,
-         "trainer_suite": trainer_suite, "dryrun_suite": dryrun_suite}
+         "trainer_suite": trainer_suite, "dryrun_suite": dryrun_suite,
+         "tracing_suite": tracing_suite}

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import smmdax.pallas.mmd_kernel as pk
+from smmdax_torch import tracing
 from smmdax_torch.cuda import mmd_kernel as tk
 
 CASES = [("gaussian", (1.0, 2.0, 4.0, 8.0, 16.0), 0.0),
@@ -207,13 +208,18 @@ def test_ring_var_stats_makes_three_stats_sweeps_per_rotation(monkeypatch, size)
 
 
 def test_cpu_uses_plain_versions_and_counts_no_launch():
-    before = [f.launches for f in tk.kernel_launch_counters()]
-    a, b, _, _ = _inputs(False)
-    at = torch.from_numpy(a).requires_grad_()
-    rows, cols, sq = tk.make_pair_stats("rq", (0.5, 1.0), False)(at, torch.from_numpy(b))
-    (rows.sum() + cols.sum() + sq).backward()
-    tk.make_pair_sum("rq", (0.5, 1.0), True)(at, at).backward()
-    assert [f.launches for f in tk.kernel_launch_counters()] == before
+    tracing.enable()
+    try:
+        tracing.drain()
+        a, b, _, _ = _inputs(False)
+        at = torch.from_numpy(a).requires_grad_()
+        rows, cols, sq = tk.make_pair_stats("rq", (0.5, 1.0), False)(at, torch.from_numpy(b))
+        (rows.sum() + cols.sum() + sq).backward()
+        tk.make_pair_sum("rq", (0.5, 1.0), True)(at, at).backward()
+        _, counters = tracing.drain()
+    finally:
+        tracing.disable()
+    assert not [k for k in counters if k.startswith("mmd.")]
 
 
 @pytest.mark.parametrize("which", ["a", "b", "both"])
