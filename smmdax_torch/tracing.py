@@ -26,14 +26,16 @@ counter and empties the store, and ``counters()`` reads the counters
 without emptying them.  Spans and counters touch no tensor and
 never synchronize the device.
 
-Counters count host calls: a counter bumped inside a CUDA-graph capture
-counts the capture once, not each replay.  A graph API must add its
-captured counts for every replay.
+Counters count host calls.  A CUDA-graph capture runs the host calls
+once and launches nothing, so it holds its counts aside (``recording()``)
+and each of its replays adds them (``smmdax_torch.train``'s graphed
+macro-step does).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 import time
@@ -56,6 +58,8 @@ SPANS: Dict[str, str] = {
                     "and the ranks' mean of the gradients",
     "train.g_adam": "the ranks' mean of the BN averages and Adam on the generator",
     "train.ema": "the EMA of the generator's weights and BN averages",
+    "train.graph_replay": "the batch's copy into a captured macro-step's buffer and one replay "
+                          "of it (every train.d_* / train.g_* phase, on the card alone)",
     "train.sample": "sample: eval-mode images from the EMA generator",
     "nn.spectral": "an SN layer's forward side of spectral norm: the power iteration "
                    "and W / sigma (its backward falls under train.d_grad / train.g_grad)",
@@ -79,12 +83,14 @@ SPANS: Dict[str, str] = {
     "trainer.score": "a scoring event (_score)",
 }
 
-# every counter counts host calls: a CUDA-graph replay adds nothing by itself
+# every counter counts host calls; a CUDA-graph replay adds its capture's counts
 COUNTERS: Dict[str, str] = {
     "mmd.pair_sum.launches": "host launches of the pair-sum kernel",
     "mmd.pair_sum_grad_a.launches": "host launches of the pair-sum gradient kernel",
     "mmd.pair_stats.launches": "host launches of the pair-stats kernel",
     "mmd.pair_stats_grad_a.launches": "host launches of the pair-stats gradient kernel",
+    "train.graph.captures": "macro-steps captured into a CUDA graph",
+    "train.graph.replays": "macro-steps run as a replay of a captured CUDA graph",
     "dp.bytes": "payload bytes of the collectives called (each rank's input)",
     "tracing.dropped_spans": "span records the full store dropped",
 }
@@ -199,11 +205,28 @@ def span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` (a key of ``COUNTERS``) while
-    the counters are on."""
+    the counters are on; inside ``recording()`` on this thread, to its
+    dict instead, whether or not they are on."""
+    into = getattr(_local, "into", None)
+    if into is not None:
+        into[name] = into.get(name, 0) + n
+        return
     if not _counting:
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording(into: Dict[str, int]):
+    """Counts made on this thread inside the block go to ``into`` and not
+    to the counters: a CUDA-graph capture keeps them for its replays."""
+    outer = getattr(_local, "into", None)
+    _local.into = into
+    try:
+        yield into
+    finally:
+        _local.into = outer
 
 
 def drain() -> Tuple[List[SpanRecord], Dict[str, int]]:

@@ -46,7 +46,11 @@ rank its block; the trainer feeds each rank its block alone.
 
 ``dispatch_train_step`` is the counterpart of JAX's ``jit_train_step``:
 k macro-steps per call on a (k, ...) batch stack, as the trainer
-dispatches them (over ranks, this rank's block of each).
+dispatches them (over ranks, this rank's block of each).  On one card it
+replays each macro-step from one captured CUDA graph, the counterpart of
+the one program per dispatch of JAX's ``_scan_dispatches``: the host
+launches one graph instead of ~12.7k kernels (but under a profiler that
+records program spans, which runs it eagerly).
 ``device_data_train_step`` and ``on_device_train_step`` are those of ``jit_train_step_device_data`` and
 ``jit_train_step_on_device``: each macro-step gathers its batch from a
 dataset resident on the device, or draws a uniform one there, from a
@@ -102,11 +106,24 @@ _ADAM_EPS = 1e-8
 
 @dataclasses.dataclass
 class AdamState:
-    """``optax.ScaleByAdamState``: step count and moments by parameter name."""
+    """``optax.ScaleByAdamState``: step count and moments by parameter name.
+
+    ``count`` is the host's count, which checkpoints and callers read.
+    ``device_count`` is its copy on the moments' device (a 0-d int64
+    tensor), made from ``count`` whenever an ``AdamState`` is built:
+    fresh, loaded from a checkpoint or converted.  Each update bumps both
+    and reads its bias corrections at ``device_count``, so a captured
+    update replays at the count it has reached.  Code that sets ``count``
+    by hand sets ``device_count`` to match."""
 
     count: int
     mu: Dict[str, Tensor]
     nu: Dict[str, Tensor]
+    device_count: Tensor = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        dev = next(iter(self.mu.values())).device if self.mu else torch.device("cpu")
+        self.device_count = torch.tensor(self.count, dtype=torch.int64, device=dev)
 
 
 @dataclasses.dataclass
@@ -122,6 +139,9 @@ class TrainState:
     sched_fails: int = 0
     g_params_ema: Optional[Dict[str, Tensor]] = None   # EMA shadows when
     g_stats_ema: Optional[Dict[str, Tensor]] = None    # cfg.ema_decay > 0
+    # the macro-step captured for dispatch_train_step's CUDA graphs, which
+    # goes with the state
+    graph: Optional["_Graphed"] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -206,24 +226,82 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+# decay**count under this: 1 - decay**count is 1.0 in float32 (it rounds
+# to 1 under 2**-25), at that count and every later one
+_SATURATED = 2.0 ** -30
+
+
+def _bias_corrections(decay: float) -> np.ndarray:
+    """``_bias_correction(decay, c)`` for c = 0, 1, ... up to the first
+    count where decay**c falls under 2**-30, float32, one by one: every
+    later count's correction is the last row's 1.0.  ~200 rows for 0.9,
+    ~20.8k for 0.999."""
+    if not 0.0 <= decay < 1.0:
+        raise ValueError(f"Adam's decay rates lie in [0, 1), got {decay}")
+    out = [_bias_correction(decay, 0)]
+    while np.float32(decay) ** np.float32(len(out) - 1) >= _SATURATED:
+        out.append(_bias_correction(decay, len(out)))
+    return np.asarray(out, np.float32)
+
+
+_ADAM_TABLES: Dict[Tuple[float, float, torch.device], Tensor] = {}
+
+
+def _adam_table(b1: float, b2: float, device: torch.device) -> Tensor:
+    """(n, 2) float32 on ``device``: row c holds what Adam's division of
+    the moments by the host floats ``_bias_correction(b1, c)`` and
+    ``_bias_correction(b2, c)`` applies there, for every c when read at
+    min(c, n - 1) (both columns are 1.0 in the last row and after).  On
+    the CPU torch divides by such a float, so the row holds the two
+    corrections; on the card it multiplies by the float's float32
+    reciprocal, so the row holds the two reciprocals (``_apply_update``
+    multiplies there).  So an update that reads its row at the device
+    count is bit-identical to one that divides by host floats.  One table
+    per (b1, b2, device), made once: it never moves."""
+    key = (float(b1), float(b2), device)
+    table = _ADAM_TABLES.get(key)
+    if table is None:
+        cols = [_bias_corrections(b1), _bias_corrections(b2)]
+        n = max(len(c) for c in cols)
+        rows = np.ones((n, 2), np.float32)
+        for j, col in enumerate(cols):
+            rows[:len(col), j] = col
+        if device.type == "cuda":
+            with np.errstate(divide="ignore"):      # row 0: count 0, never read
+                rows = np.float32(1.0) / rows
+        table = _ADAM_TABLES[key] = torch.from_numpy(rows).to(device)
+    return table
+
+
+def _adam_row(table: Tensor, count: Tensor) -> Tensor:
+    """Row min(``count``, last) of ``table``, ``count`` a 0-d device
+    tensor: the two corrections of that count."""
+    return table.index_select(0, count.clamp(max=table.shape[0] - 1).view(1))[0]
+
+
 def _apply_update(cfg: Config, module: nn.Module, grads, opt: AdamState,
                   lr: Tensor) -> None:
-    """params += -lr * scale_by_adam(grads), in place."""
+    """params += -lr * scale_by_adam(grads), in place; the bias
+    corrections come from ``_adam_table`` at the device count."""
     names = [n for n, _ in module.named_parameters()]
     params = [p for _, p in module.named_parameters()]
     mu = [opt.mu[n] for n in names]
     nu = [opt.nu[n] for n in names]
     b1, b2 = cfg.beta1, cfg.beta2
+    table = _adam_table(b1, b2, opt.device_count.device)
+    unbias = torch._foreach_mul if table.device.type == "cuda" else torch._foreach_div
     opt.count += 1
     with torch.no_grad():
+        opt.device_count.add_(1)
+        row = _adam_row(table, opt.device_count)
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
         g2 = torch._foreach_mul(grads, grads)
         torch._foreach_mul_(g2, 1.0 - b2)
         torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, g2)
-        mu_hat = torch._foreach_div(mu, _bias_correction(b1, opt.count))
-        den = torch._foreach_div(nu, _bias_correction(b2, opt.count))
+        mu_hat = unbias(mu, row[0])
+        den = unbias(nu, row[1])
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, _ADAM_EPS)
         updates = torch._foreach_div(mu_hat, den)
@@ -569,6 +647,132 @@ def _repeat(step, k: int):
     return multi
 
 
+# ---------------------------------------------------------------------------
+# the macro-step under a CUDA graph
+
+_capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _step_tensors(state: TrainState) -> list:
+    """Every tensor of ``state`` that a macro-step reads or writes, in a
+    fixed order."""
+    out = [state.lr_d, state.lr_g]
+    for module in (state.gen, state.disc):
+        out += list(module.parameters()) + list(module.buffers())
+    for opt in (state.d_opt, state.g_opt):
+        out += [opt.device_count, *opt.mu.values(), *opt.nu.values()]
+    for shadow in (state.g_params_ema, state.g_stats_ema):
+        out += list((shadow or {}).values())
+    return out
+
+
+def _graph_key(cfg: Config, dsteps: int, gsteps: int, state: TrainState,
+               real: Tensor) -> tuple:
+    """What a capture of ``state``'s macro-step on batches like ``real``
+    binds: the build, the noise generator, the batch's shape and dtype,
+    and the address of every tensor the step reads or writes.  In-place
+    updates keep the key; a rebound tensor (a decayed learning rate,
+    loaded Adam moments) or another generator changes it."""
+    return ((cfg, dsteps, gsteps), id(state.generator), tuple(real.shape), real.dtype,
+            *(t.data_ptr() for t in _step_tensors(state)))
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The side stream that warms up and captures on ``dev``: a capture
+    cannot run on the default stream, and the lazy per-stream state
+    (cuBLAS workspaces) it needs is made by the warm-up there."""
+    if dev not in _capture_streams:
+        _capture_streams[dev] = torch.cuda.Stream(dev)
+    return _capture_streams[dev]
+
+
+def _profiled() -> bool:
+    """Whether program spans are on under a recording ``torch.profiler``:
+    a caller asks which phase launched each kernel.  A replay cannot tell
+    it (the profiler links a graph's kernels to no host span), so the
+    macro-step then runs eagerly."""
+    return tracing.enabled() and torch._C._autograd._profiler_enabled()
+
+
+class _Graphed:
+    """A state's captured macro-step: the key it was seen with and, once
+    captured, the graph, the static batch it reads, the metrics it writes
+    and the counters its capture recorded.  Holding the generator keeps
+    its id this entry's."""
+
+    def __init__(self, key: tuple, generator: torch.Generator):
+        self.key, self.generator = key, generator
+        self.graph = self.real = self.metrics = None
+        self.counts: Dict[str, int] = {}
+
+    def capture(self, step, state: TrainState, real: Tensor) -> None:
+        """Capture ``step`` on a static copy of ``real``.  The host's part
+        runs (the host counts move once); nothing runs on the card."""
+        self.real = real.to(state.device, copy=True)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        with tracing.recording(self.counts), torch.cuda.graph(
+                graph, stream=_capture_stream(state.device), capture_error_mode="thread_local"):
+            _, self.metrics = step(state, self.real)
+        self.graph = graph
+        tracing.count("train.graph.captures")
+
+    def replay(self, real: Optional[Tensor] = None) -> None:
+        """Copy ``real`` into the static batch (when given) and replay, on
+        the current stream; the recorded counters move as the capture's
+        host calls would have moved them."""
+        with tracing.span("train.graph_replay"):
+            if real is not None:
+                self.real.copy_(real)
+            self.graph.replay()
+        for name, n in self.counts.items():
+            tracing.count(name, n)
+        tracing.count("train.graph.replays")
+
+    def release(self) -> None:
+        """Wait until no replay can still be running, before the graph and
+        its pool go."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.real.device)
+
+
+def _graphed(cfg: Config, dsteps: int, gsteps: int, step):
+    """``run(state, real) -> (state, metrics, static)``: one macro-step of
+    ``step`` (``build_train_step``'s, noise from ``state.generator``) on a
+    CUDA state, through the capture the state holds (``state.graph``).  A
+    key (``_graph_key``) other than the state's capture's (none yet,
+    another build, a rebound tensor) replaces it and runs the macro-step
+    eagerly on the capture stream (the warm-up); the next call with that
+    key captures and replays it; later calls replay.  ``static``: the
+    metrics are the graph's outputs, which the next replay overwrites."""
+    def run(state: TrainState, real):
+        real = torch.as_tensor(real)
+        key = _graph_key(cfg, dsteps, gsteps, state, real)
+        entry, dev = state.graph, state.device
+        if entry is not None and entry.key == key:
+            if entry.graph is not None:
+                entry.replay(real)
+                state.step += 1
+                state.d_opt.count += dsteps
+                state.g_opt.count += gsteps
+            else:
+                with torch.cuda.device(dev):
+                    entry.capture(step, state, real)
+                entry.replay()
+            return state, entry.metrics, True
+        if entry is not None:
+            entry.release()
+        state.graph = _Graphed(key, state.generator)
+        stream, current = _capture_stream(dev), torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            state, metrics = step(state, real)
+        current.wait_stream(stream)
+        return state, metrics, False
+
+    return run
+
+
 def dispatch_train_step(cfg: Config, dsteps: int, gsteps: int,
                         steps_per_dispatch: int = 1, axis: Optional[DataAxis] = None
                         ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
@@ -580,15 +784,50 @@ def dispatch_train_step(cfg: Config, dsteps: int, gsteps: int,
     bit-identical to k calls of ``build_train_step``.  With ``axis``,
     ``real`` is this rank's block (B / ranks rows) and the step runs in
     ``cfg.dp_mode``.  Each call is one ``train.dispatch`` span
-    (``smmdax_torch.tracing``)."""
+    (``smmdax_torch.tracing``).
+
+    The CUDA graph engages where the input shows it can: a CUDA state, one
+    rank (no axis after ``check_ranks``) and no ``noise`` passed.  Each
+    macro-step is then a replay of one captured graph, which the state
+    holds (``state.graph``, dropped with it) and every dispatch size of
+    one (cfg, dsteps, gsteps) shares: the batch is copied into the graph's
+    static buffer (``normalize_uint8`` runs inside the graph) and
+    ``state.generator``, registered with the graph, gives the eager draws
+    and ends where the eager steps leave it.  A capture is keyed by the
+    build, the generator, the batch's shape and dtype, and the address of
+    every tensor the step reads or writes (``_graph_key``): a new key runs
+    one macro-step eagerly, captures on its next call and replays after; a
+    rebound learning rate, loaded moments or another build recaptures.
+    Replays count ``train.graph.replays`` and repeat the counters their
+    capture recorded; captures count ``train.graph.captures``.  The
+    metrics of a replay are clones of the graph's outputs, so a later
+    replay leaves metrics already returned as they were.  With program
+    spans on under a recording profiler (``_profiled``: the benchmark's
+    window B, the trainer's ``profile_steps``) a macro-step runs eagerly,
+    so that each kernel is credited to the phase that launched it; the
+    capture stays and the next unprofiled macro-step replays it.
+    Elsewhere (the CPU, data parallel, a caller's noise) every macro-step
+    runs eagerly, as ``device_data_train_step`` and
+    ``on_device_train_step`` do."""
     axis = check_ranks(cfg, axis)
     step = build_train_step(cfg, dsteps, gsteps, axis=axis)
+    graphed = _graphed(cfg, dsteps, gsteps, step) if axis is None else None
     k = steps_per_dispatch
+
+    def macro_step(state: TrainState, real, noise: Optional[Noise] = None):
+        if (graphed is not None and noise is None and state.device.type == "cuda"
+                and not _profiled()):
+            return graphed(state, real)
+        return (*step(state, real, noise), False)
+
+    def own(metrics: Dict[str, Tensor], static: bool) -> Dict[str, Tensor]:
+        return {name: v.clone() for name, v in metrics.items()} if static else metrics
 
     if k == 1:
         def single(state: TrainState, real, noise: Optional[Noise] = None):
             with tracing.span("train.dispatch"):
-                return step(state, real, noise)
+                state, metrics, static = macro_step(state, real, noise)
+                return state, own(metrics, static)
 
         return single
 
@@ -599,8 +838,8 @@ def dispatch_train_step(cfg: Config, dsteps: int, gsteps: int,
             if reals.shape[0] != k:
                 raise ValueError(f"a dispatch of {k} macro-steps got {reals.shape[0]} batches")
             for real in reals:
-                state, metrics = step(state, real)
-            return state, metrics
+                state, metrics, static = macro_step(state, real)
+            return state, own(metrics, static)
 
     return multi
 

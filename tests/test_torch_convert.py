@@ -64,7 +64,7 @@ def test_conv_and_dense_layouts(states):
 def test_optimizer_ema_and_scalars(states):
     js, ts = states
     for opt_j, opt_t in ((js.g_opt_state, ts.g_opt), (js.d_opt_state, ts.d_opt)):
-        assert opt_t.count == int(opt_j.count)
+        assert opt_t.count == int(opt_j.count) == int(opt_t.device_count)
         for tree, got in ((opt_j.mu, opt_t.mu), (opt_j.nu, opt_t.nu)):
             want = convert.flatten(tree)
             assert set(want) == set(got)
