@@ -9,8 +9,13 @@ each of ``--control_seeds`` the control.  A training cell's is the
 reference with every bfloat16 product taken in float8 (e4m3 forward, e5m2
 gradients, one scale per tensor), put in the program's place.  A scoring
 cell's is the reference in the program's place one precision below at
-every stage (``control_event``).  For each of ``--fault_seeds``: in a
-training cell the planted fault of half of the batch left out (the
+every stage (``control_event``); a ``train4`` cell's is the reference of
+the data-parallel step with float8 products.  For each of
+``--fault_seeds``: in a ``train4`` cell, each rank's own MMD^2 and half
+of every rank's block left out, planted in that reference put in the
+program's place, and rank 1 fed rank 0's block, planted in the program
+(``block_gap``);
+in a training cell the planted fault of half of the batch left out (the
 reference on the first half of every real and fake batch, the means over
 it) and, where the seed is also among ``--seeds``, the program's dispatch
 reusing its first batch for all K macro-steps (``dispatch_gap``); in a
@@ -107,6 +112,93 @@ def _train(c, t, args, dev, record) -> None:
                 ref = tc.reference_readings(c, seed, data, t["check_steps"], dev)
             alt = tc.reference_readings(c, seed, data, t["check_steps"], dev, **kw)
             record(kind, seed, tc.compare(alt, ref), details(alt, ref), time.perf_counter() - t0)
+
+
+def rank1_fed_rank0():
+    """Plant the fault of rank 1's feed building rank 0's block of every
+    batch, in the program (the port's ``macro_batch_at``); returns the
+    function that takes it out."""
+    import smmdax_torch.data.pipeline as pipeline
+    real = pipeline.macro_batch_at
+
+    def fed(source, step, per_step, batch, u8=False, block=None):
+        if block is not None and block[0] == 1:
+            block = (0, block[1])
+        return real(source, step, per_step, batch, u8=u8, block=block)
+
+    pipeline.macro_batch_at = fed
+    return lambda: setattr(pipeline, "macro_batch_at", real)
+
+
+def _train4_rank(axis, c, t, programs, jobs):
+    """One rank of the ``train4`` calibration: the program's readings of
+    every (kind, seed) of ``programs`` (all ranks together; kind
+    ``rank1_block0`` with that fault planted), then its share of the
+    reference's runs (``jobs``: (kind, seed, fault)), each on this rank's
+    card; rank 0 returns both."""
+    import torch
+    from benchmark import train4_cell
+    from benchmark.feed import images
+    from benchmark.reference import gan_dp
+    out = []
+    for kind, seed in programs:
+        t0 = time.perf_counter()
+        undo = rank1_fed_rank0() if kind == "rank1_block0" else (lambda: None)
+        try:
+            cfg, data, state, step, single, feed, prog, fed = train4_cell.start(c, t, seed, axis)
+        finally:
+            undo()
+        state, gaps = train4_cell.checks(cfg, c, seed, data, fed, state, step, single, feed,
+                                         axis)
+        feed.close()
+        del state, step, single
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.append((kind, seed, prog, gaps, time.perf_counter() - t0))
+    mine = {}
+    for j, (kind, seed, fault) in enumerate(jobs):
+        if j % axis.size == axis.index:
+            t0 = time.perf_counter()
+            data = images(seed, c["dataset_images"], c["output_size"], c["c_dim"])
+            cast = gan.to_fp8_scaled if kind == "control" else "config"
+            r = tc.reference_readings(c, seed, data, t["check_steps"], axis.device, cast=cast,
+                                      model=gan_dp, **fault)
+            r.state = None
+            mine[(kind, seed)] = (r, time.perf_counter() - t0)
+    refs = {k: v for d in axis.gather_objects(mine) for k, v in d.items()}
+    return out, refs
+
+
+def _train4(c, t, args, record) -> None:
+    """The program's readings on ``c["num_data_shards"]`` ranks, and four
+    readings that must fail: the reference of the data-parallel step
+    (``gan_dp``) in the program's place with float8 products (the
+    control), with each rank's own MMD^2 (``global_batch_mmd=False``) and
+    with half of every rank's block left out; and the program with rank 1
+    fed rank 0's block."""
+    from benchmark import ranks
+    n = c["num_data_shards"]
+    b = c["real_batch_size"] // n
+    faults = {"own_mmd": {"local_mmd": True}, "half_batch": {"rows": b // 2}}
+    extra = set(args.control_seeds) | set(args.fault_seeds)
+    jobs = [("reference", s, {}) for s in sorted(set(args.seeds) | extra)]
+    jobs += [("control", s, {}) for s in args.control_seeds]
+    jobs += [(kind, s, faults[kind]) for kind in ("own_mmd", "half_batch")
+             for s in args.fault_seeds]
+    programs = [("program", s) for s in args.seeds]
+    programs += [("rank1_block0", s) for s in args.fault_seeds]
+    # a set-up and its checks take ~15 s on four ranks, a reference ~5 s
+    deadline = 180.0 + 40.0 * len(programs) + 20.0 * len(jobs)
+    got, refs = ranks.run(_train4_rank, n, "cuda", (c, t, programs, jobs), deadline=deadline)
+    for kind, seed, prog, gaps, secs in got:
+        ref, ref_s = refs[("reference", seed)]
+        record(kind, seed, {**tc.compare(prog, ref), **gaps}, details(prog, ref),
+               secs + ref_s)
+    for kind, seed, _ in jobs:
+        if kind != "reference":
+            alt, secs = refs[(kind, seed)]
+            ref = refs[("reference", seed)][0]
+            record(kind, seed, tc.compare(alt, ref), details(alt, ref), secs)
 
 
 def control_event(c: dict, t: dict, seed: int, data, path: str, dev) -> dict:
@@ -209,10 +301,10 @@ def main(argv=None) -> None:
     cell = common.find(bench["workloads"], args.workload, "workload")
     c, t = common.load_config(cell["config"]), common.load_traffic(cell["traffic"])
     dev = torch.device("cuda")
-    common.check_device(1)
+    common.check_device(cell["chips"])
     out = open(args.out, "a") if args.out else None
     got = {"program": [], "control": [], "half_batch": [], "program_tf32": [],
-           "stale_batch": [], "live_weights": []}
+           "stale_batch": [], "live_weights": [], "own_mmd": [], "rank1_block0": []}
 
     def record(kind: str, seed: int, numbers: dict, extra: dict, secs: float) -> None:
         got[kind].append(numbers)
@@ -225,15 +317,18 @@ def main(argv=None) -> None:
 
     if t["kind"] == "score":
         _score(c, t, args, dev, record)
+    elif t["kind"] == "train4":
+        _train4(c, t, args, record)
     else:
         _train(c, t, args, dev, record)
     summary = {}
     for key in sorted({k for n in got["program"] + got["control"] for k in n}):
         summary[key] = {
             "lower": max((n[key] for n in got["program"]), default=None),
-            "control": min((n[key] for n in got["control"]), default=None),
+            "control": min((n[key] for n in got["control"] if key in n), default=None),
             **{kind: min((n[key] for n in got[kind] if key in n), default=None)
-               for kind in ("half_batch", "program_tf32", "stale_batch", "live_weights")}}
+               for kind in ("half_batch", "program_tf32", "stale_batch", "live_weights",
+                            "own_mmd", "rank1_block0")}}
     print(json.dumps({"cell": args.workload, "summary": summary}), flush=True)
     if out:
         out.write(json.dumps({"cell": args.workload, "summary": summary}) + "\n")

@@ -68,6 +68,11 @@ def load_traffic(name: str) -> dict:
     return load_json(os.path.join(HERE, "traffic", f"{name}.json"))
 
 
+def has_cell_module(kind: str) -> bool:
+    """Whether a traffic ``kind`` has its cell module, ``benchmark/<kind>_cell.py``."""
+    return os.path.exists(os.path.join(HERE, f"{kind}_cell.py"))
+
+
 def port_config(c: dict, seed: int):
     """The port's ``Config`` from a configuration file: every key of the
     file that is a ``Config`` field, the seed as ``random_seed``."""
@@ -87,15 +92,18 @@ def check_device(chips: int) -> None:
         raise Refused(f"the cell needs {chips} cards, {torch.cuda.device_count()} are visible")
 
 
-def device_info(chips: int, dev) -> Dict[str, Any]:
+def device_info(chips: int, dev, peaks: Optional[List[int]] = None) -> Dict[str, Any]:
     """The result's ``device``: the cards and the peak on the fullest, or
-    the CPU of a rehearsal."""
+    the CPU of a rehearsal.  ``peaks``: each card's peak as the processes
+    that used it read it (the ranks of a ``train4`` cell), read in this
+    process when None."""
     import torch
     if dev.type != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0}
+    if peaks is None:
+        peaks = [torch.cuda.max_memory_allocated(i) for i in range(chips)]
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": chips,
-            "memory_peak_bytes": int(max(torch.cuda.max_memory_allocated(i)
-                                         for i in range(chips)))}
+            "memory_peak_bytes": int(max(peaks))}
 
 
 def sync(dev) -> None:

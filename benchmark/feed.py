@@ -5,8 +5,9 @@ from the seed in bulk.  ``Feed`` is the trainer's producer
 (``smmdax_torch.trainer.Trainer.train``): a thread assembles each
 macro-step's uint8 batch through the port's ``macro_batch_at`` keyed by
 the step, into a bounded queue of twice the dispatch, and the caller
-stacks the dispatch's K of them.  The caller's waits on the queue are the
-``data.wait`` span.
+stacks the dispatch's K of them; over ranks each rank's feed builds its
+own block of the global batch (``block=(rank, ranks)``), as the trainer's
+ranks do.  The caller's waits on the queue are the ``data.wait`` span.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -27,18 +28,21 @@ def images(seed: int, n: int, size: int, channels: int = 3) -> np.ndarray:
 
 
 class Feed:
-    def __init__(self, source, per_step: int, batch: int, k: int, start: int = 0):
+    def __init__(self, source, per_step: int, batch: int, k: int, start: int = 0,
+                 block=None):
         from smmdax_torch.data.pipeline import macro_batch_at
         self.k = k
         self.q: "queue.Queue" = queue.Queue(maxsize=max(2, 2 * k))
         self.stop_event = threading.Event()
         self.next_step = start
         self.waits: List[float] = []
+        # a list to keep every batch handed out in, while one is set
+        self.kept: Optional[List[np.ndarray]] = None
 
         def produce() -> None:
             s = start
             while not self.stop_event.is_set():
-                item = macro_batch_at(source, s, per_step, batch, u8=True)
+                item = macro_batch_at(source, s, per_step, batch, u8=True, block=block)
                 while not self.stop_event.is_set():
                     try:
                         self.q.put((s, item), timeout=0.5)
@@ -64,7 +68,10 @@ class Feed:
             parts.append(item)
         if record:
             self.waits.append(time.perf_counter() - t0)
-        return parts[0] if k == 1 else np.stack(parts)
+        out = parts[0] if k == 1 else np.stack(parts)
+        if self.kept is not None:
+            self.kept.append(out)
+        return out
 
     def close(self) -> None:
         self.stop_event.set()

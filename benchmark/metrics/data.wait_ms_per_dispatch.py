@@ -4,6 +4,6 @@
 
 def read(run):
     waits = run.get("spans", {}).get("data.wait")
-    if run.get("kind") != "train" or not waits:
+    if run.get("kind") not in ("train", "train4") or not waits:
         return None
     return 1e3 * sum(waits) / len(waits)

@@ -4,6 +4,7 @@
 
 def read(run):
     tr = run.get("trace")
-    if run.get("kind") != "train" or not tr or not tr.get("window_s") or not tr.get("busy_s"):
+    if run.get("kind") not in ("train", "train4") or not tr or not tr.get("window_s") \
+            or not tr.get("busy_s"):
         return None
     return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

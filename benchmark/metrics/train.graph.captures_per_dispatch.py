@@ -8,7 +8,7 @@ from benchmark import program_trace
 
 
 def read(run):
-    if run.get("kind") != "train":
+    if run.get("kind") not in ("train", "train4"):
         return None
     w = program_trace.windows(run)
     if not w or not w.get("units_a"):

@@ -18,6 +18,10 @@ has warmed, and runs two more windows:
   card to the innermost program span open on the launching thread at the
   gap's middle, or to ``outside program spans``.
 
+A cell over ranks (``train4``) runs both windows itself, on every rank
+and on the cell's own state, with only rank 0 under the profiler
+(``dispatch_windows``), and carries rank 0's as ``run["program"]``.
+
 The per-span table (count, host ms, launches, device ms, idle ms) is
 written to ``benchmark/_cache/`` and its path printed on standard error.
 A program without ``smmdax_torch.tracing`` gives nothing to read.
@@ -236,6 +240,20 @@ def _traced(fn, dev, profiled: bool):
     return wall, spans, counters, evs, threading.get_ident()
 
 
+def dispatch_windows(dispatches, n_a: int, n_b: int, k: int, dev, profile: bool = True
+                     ) -> dict:
+    """Windows A and B of a training program: ``dispatches(n)`` runs n
+    dispatches of K = ``k`` macro-steps.  ``profile=False`` runs window B
+    with the spans on but without the profiler (a rank that keeps pace
+    with the profiled one) and reads no device table."""
+    wall_a, spans_a, counters_a, _, main = _traced(dispatches(n_a), dev, False)
+    _, _, counters_b, evs, _ = _traced(dispatches(n_b), dev, profile)
+    return {"unit": "macro_step", "units_a": n_a * k, "units_b": n_b * k, "wall_a": wall_a,
+            "host": host_ms(spans_a, main), "counters_a": counters_a,
+            "counters_b": counters_b,
+            "device": attribute(evs, _span_names()) if profile else None}
+
+
 def _train_windows(run: dict, seed: int, dev) -> dict:
     """The training cell's program as ``train_cell.start`` builds it, but
     for the checked steps (the process is warm from the cell's run): one
@@ -259,14 +277,10 @@ def _train_windows(run: dict, seed: int, dev) -> dict:
 
     try:
         dispatches(1)()
-        n_a, n_b = t["trace_dispatches"], t["label_dispatches"]
-        wall_a, spans_a, counters_a, _, main = _traced(dispatches(n_a), dev, False)
-        _, _, counters_b, evs, _ = _traced(dispatches(n_b), dev, True)
+        return dispatch_windows(dispatches, t["trace_dispatches"], t["label_dispatches"], k,
+                                dev)
     finally:
         feed.close()
-    return {"unit": "macro_step", "units_a": n_a * k, "units_b": n_b * k, "wall_a": wall_a,
-            "host": host_ms(spans_a, main), "counters_a": counters_a,
-            "counters_b": counters_b, "device": attribute(evs, _span_names())}
 
 
 def _score_windows(run: dict, seed: int, dev) -> dict:
@@ -335,10 +349,26 @@ def _seed_and_cell():
     return args.seed, args.workload
 
 
+def record(out: dict) -> None:
+    """Write a run's windows to ``benchmark/_cache/`` and say where."""
+    seed, cell = _seed_and_cell()
+    path = os.path.join(common.HERE, "_cache", f"program_spans_{cell}_{seed}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    print(f"program spans: {path}; idle_spans {json.dumps(out['device']['idle_spans'])}; "
+          f"tracing on: {out['traced_per_s']!r} against {out['untraced_per_s']!r} "
+          f"{out['unit']}s/s; {out['seconds']!r} s", file=sys.stderr)
+
+
 def windows(run: dict) -> Optional[dict]:
     """Windows A and B of this traced run, measured once for all the
     metrics that read them; None without a card, in a run with nothing to
-    set up, or for a program without ``smmdax_torch.tracing``."""
+    set up, or for a program without ``smmdax_torch.tracing``.  A cell
+    that measured them on its own state (``train4``) carries them as
+    ``run["program"]``."""
+    if "program" in run:
+        return run["program"]
     if run.get("kind") not in ("train", "score") or not run.get("trace"):
         return None
     if id(run) in _DONE:
@@ -347,15 +377,9 @@ def windows(run: dict) -> Optional[dict]:
     if not torch.cuda.is_available() or importlib.util.find_spec("smmdax_torch.tracing") is None:
         _DONE[id(run)] = (run, None)
         return None
-    seed, cell = _seed_and_cell()
+    seed, _ = _seed_and_cell()
     out = measure(run, seed, torch.device("cuda"))
-    path = os.path.join(common.HERE, "_cache", f"program_spans_{cell}_{seed}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1, sort_keys=True)
-    print(f"program spans: {path}; idle_spans {json.dumps(out['device']['idle_spans'])}; "
-          f"tracing on: {out['traced_per_s']!r} against {out['untraced_per_s']!r} "
-          f"{out['unit']}s/s; {out['seconds']!r} s", file=sys.stderr)
+    record(out)
     _DONE[id(run)] = (run, out)
     return out
 

@@ -6,10 +6,12 @@ from the root of a checkout.  ``<cell>`` is a ``workloads`` entry of
 ``BENCHMARK.json``; its configuration and traffic are the files
 ``benchmark/configs/<config>.json`` and ``benchmark/traffic/<traffic>.json``,
 and the traffic's ``kind`` names the driver, ``benchmark/<kind>_cell.py``
-(``train_cell``, ``score_cell``): a new kind of cell is a new file.  The last line of standard output is the
-result: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
-end-to-end metrics, or with ``--trace 1`` its per-layer ones, each read
-by ``benchmark/metrics/<metric>.py``), ``device`` and, traced,
+(``train_cell``, ``score_cell``; ``train4_cell``, whose cards belong to rank
+processes, ``benchmark.ranks``): a new kind of cell is a new file.  The
+last line of standard output is the result: ``correct``, ``attempted``,
+``failed``, ``metrics`` (the cell's end-to-end metrics, or with
+``--trace 1`` its per-layer ones, each read by
+``benchmark/metrics/<metric>.py``), ``device`` and, traced,
 ``breakdown``; then ``checks``, each compared number beside its limit,
 which also end standard error.  Without a card, with fewer cards than the
 cell asks for, or with a module of the JAX stack loaded once the window
@@ -51,7 +53,7 @@ def drive(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda
     cell = common.find(bench["workloads"], name, "workload")
     c = config if config is not None else common.load_config(cell["config"])
     t = common.load_traffic(cell["traffic"])
-    if not os.path.exists(os.path.join(common.HERE, f"{t['kind']}_cell.py")):
+    if not common.has_cell_module(t["kind"]):
         raise common.Refused(f"traffic {cell['traffic']!r} has an unknown kind {t['kind']!r}")
     driver = importlib.import_module(f"benchmark.{t['kind']}_cell")
     peaks = None

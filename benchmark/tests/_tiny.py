@@ -7,12 +7,23 @@ from benchmark import common
 
 TRAIN_CELL = "cifar10_sn_smmd_resnet.train"
 SCORE_CELL = "cifar10_sn_smmd_resnet.score"
+TRAIN4_CELL = "imagenet64_sn_smmd_multichip.train4"
 
 
 def train_config(**kw):
     c = common.load_config("cifar10_sn_smmd_resnet")
     c.update(batch_size=8, real_batch_size=8, gf_dim=8, df_dim=8, dof_dim=4, z_dim=16,
              dataset_images=200, dsteps=2, compute_dtype="float32")
+    c.update(kw)
+    return c
+
+
+def train4_config(**kw):
+    """The ImageNet-64 cell's flags at 64 px with tiny widths, 2 rows a
+    rank on 4 ranks."""
+    c = common.load_config("imagenet64_sn_smmd_multichip")
+    c.update(batch_size=8, real_batch_size=8, gf_dim=8, df_dim=8, dof_dim=4, z_dim=16,
+             dataset_images=64, dsteps=2, steps_per_dispatch=2, compute_dtype="float32")
     c.update(kw)
     return c
 

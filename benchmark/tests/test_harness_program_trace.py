@@ -84,8 +84,11 @@ WINDOW = {
              "eval.gaussian_stats": {"count": 1, "host_ms": 30.0},
              "eval.frechet": {"count": 1, "host_ms": 90.0},
              "eval.three_sample_test": {"count": 2, "host_ms": 50.0}},
+    "counters_a": {"dp.bytes": 800.0},
     "device": {"spans": {"nn.spectral": {"launches": 400, "idle_ms": 8.0},
                          "train.sn_refresh": {"launches": 200, "idle_ms": 4.0},
+                         "dp.all_reduce": {"device_ms": 4.0}, "dp.shift": {"device_ms": 2.0},
+                         "losses.mmd": {"device_ms": 1.2},
                          "train.d_grad": {"device_ms_in": 60.0, "launches": 7}},
                "idle_spans": []},
 }
@@ -94,18 +97,23 @@ SCORE_WINDOW = dict(WINDOW, unit="event", units_a=1, units_b=1)
 
 @pytest.mark.parametrize("name,kind,window,want", [
     ("train.spectral.launches_per_macro_step", "train", WINDOW, 150.0),
-    ("train.spectral.idle_ms_per_macro_step", "train", WINDOW, 3.0),
     ("train.critic_backward.device_ms_per_macro_step", "train", WINDOW, 15.0),
     ("data.produce_ms_per_macro_step", "train", WINDOW, 2.0),
+    ("train.spectral.launches_per_macro_step", "train4", WINDOW, 150.0),
+    ("train.critic_backward.device_ms_per_macro_step", "train4", WINDOW, 15.0),
+    ("data.produce_ms_per_macro_step", "train4", WINDOW, 2.0),
     ("score.fid_ms_per_event", "score", SCORE_WINDOW, 120.0),
     ("score.test_ms_per_event", "score", SCORE_WINDOW, 50.0),
+    ("dp.collective_ms_per_macro_step", "train4", WINDOW, 1.5),
+    ("dp.ring_mmd.device_ms_per_macro_step", "train4", WINDOW, 0.3),
+    ("dp.bytes_per_macro_step", "train4", WINDOW, 100.0),
 ])
 def test_new_readers(monkeypatch, name, kind, window, want):
     run = {"kind": kind, "trace": {}}
     monkeypatch.setattr(program_trace, "windows", lambda r: window if r is run else None)
     assert common.read_metric(name, run) == pytest.approx(want)
     # the other kind of cell, and a program without tracing, read nothing
-    other = {"kind": "score" if kind == "train" else "train", "trace": {}}
+    other = {"kind": "score" if kind in ("train", "train4") else "train", "trace": {}}
     monkeypatch.setattr(program_trace, "windows", lambda r: window)
     assert common.read_metric(name, other) is None
     monkeypatch.setattr(program_trace, "windows", lambda r: None)

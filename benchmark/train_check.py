@@ -30,6 +30,22 @@ dispatch, to the dispatch of one that the three above read:
   dispatch promises the state bit-identical, so its limit is 0; a
   different step count or noise stream reads infinitely far.
 
+Over ranks (the ``train4`` cell) two more numbers hold the state
+replicated, as the data-parallel step promises, and each rank to its own
+block of the global batch:
+
+* ``rank_gap``: after the window, the largest absolute difference between
+  any tensor of a rank's state and rank 0's (the noise streams apart,
+  which are each rank's own), or infinitely far where a step count
+  differs.  Its limit is 0.
+* ``block_gap``: the largest absolute difference, over the ranks, between
+  the uint8 rows a rank's feed handed to each checked macro-step and that
+  rank's columns of the reference's global batch
+  (``gan.real_batches``), or infinitely far where a shape differs.  With
+  uniform data a rank fed another's block, or a block half left out,
+  moves the global MMD^2 less than bfloat16 rounding does, so the
+  numbers above cannot see it; this one can.  Its limit is 0.
+
 A leaf's gap: the gap between the program's norm of the leaf and the
 reference's, over the reference's norm of that leaf or of the group's
 median leaf, whichever is larger.  The gradient is held by the median
@@ -114,18 +130,20 @@ def compute_cast(c: dict):
 
 
 def reference_readings(c: dict, seed: int, data: np.ndarray, steps: int,
-                       device, cast="config", rows: Optional[int] = None) -> Readings:
-    """The reference (or, with another ``cast`` or ``rows``, the control
-    or a planted fault) over the checked macro-steps, from the seed."""
+                       device, cast="config", model=gan, **fault) -> Readings:
+    """The reference (or, with another ``cast`` or a ``fault`` of
+    ``model.macro_step``, the control or a planted fault) over the checked
+    macro-steps, from the seed.  ``model``: ``gan``, or ``gan_dp`` for the
+    data-parallel step over ``c["num_data_shards"]`` ranks."""
     if cast == "config":
         cast = compute_cast(c)
-    st = gan.State(c, seed, device)
+    st = model.State(c, seed, device)
     before = snapshot(reference_groups(st))
     dsteps, gsteps = c["dsteps"], c["gsteps"]
     r = Readings()
     for i in range(steps):
         real = gan.real_batches(data, seed, i, dsteps + gsteps, c["real_batch_size"])
-        out = gan.macro_step(c, st, torch.from_numpy(real), dsteps, gsteps, cast, rows)
+        out = model.macro_step(c, st, torch.from_numpy(real), dsteps, gsteps, cast, **fault)
         r.losses.append({key: float(out[key]) for key in LOSS_KEYS})
         if i == 0:
             r.grads = {**grad_norms("gen", st.adam["gen"][0], st.count["gen"], c["beta1"]),
@@ -160,6 +178,65 @@ def same_state(a, b, ma: Dict[str, torch.Tensor], mb: Dict[str, torch.Tensor]) -
     walk(sa, sb)
     walk({k: ma[k] for k in LOSS_KEYS}, {k: mb[k] for k in LOSS_KEYS})
     return float(worst)
+
+
+def _leaves(sd: dict, prefix: str = ""):
+    """(name, value) of every tensor and number of a state dict."""
+    for k, v in sd.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def rank_gap(state, axis) -> float:
+    """``rank_gap`` of this rank's ``TrainState``, the same on every rank
+    of ``axis``.  Each rank hashes its tensors; those whose hash differs
+    from rank 0's on any rank are sent from rank 0 and compared."""
+    import hashlib
+    from smmdax_torch.checkpoint import state_dict
+    sd = state_dict(state)
+    sd.pop("generator")
+    leaves = dict(_leaves(sd))
+
+    def digest(v) -> str:
+        if not isinstance(v, torch.Tensor):
+            return repr(v)
+        raw = v.detach().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        return f"{v.dtype}{tuple(v.shape)}" + hashlib.sha256(raw).hexdigest()
+
+    mine = {k: digest(v) for k, v in leaves.items()}
+    every = axis.gather_objects(mine)
+    differ = sorted({k for d in every for k in set(d) | set(every[0])
+                     if d.get(k) != every[0].get(k)})
+    worst = 0.0
+    for k in differ:
+        ref = axis.broadcast_object(leaves.get(k))
+        v = leaves.get(k)
+        if (isinstance(v, torch.Tensor) and isinstance(ref, torch.Tensor)
+                and v.shape == ref.shape and v.numel()):
+            gap = float((v.double() - ref.double()).abs().max())
+        else:
+            gap = 0.0 if not isinstance(v, torch.Tensor) and v == ref else np.inf
+        worst = max(worst, gap if np.isfinite(gap) else np.inf)
+    return float(max(axis.gather_objects(worst)))
+
+
+def block_gap(c: dict, seed: int, data: np.ndarray, fed, axis) -> float:
+    """``block_gap`` of the batches ``fed`` to this rank's checked
+    macro-steps (one (per_step, B / ranks, H, W, C) uint8 block each, in
+    step order), the same on every rank of ``axis``."""
+    b = c["real_batch_size"] // axis.size
+    worst = 0.0 if fed else np.inf
+    for step, got in enumerate(fed):
+        want = gan.real_batches(data, seed, step, c["dsteps"] + c["gsteps"],
+                                c["real_batch_size"])[:, axis.index * b:(axis.index + 1) * b]
+        got = np.asarray(got)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            worst = np.inf
+        else:
+            worst = max(worst, float(np.abs(got.astype(np.int16) - want).max()))
+    return float(max(axis.gather_objects(worst)))
 
 
 def _worst(p: Dict[str, float], r: Dict[str, float], keys) -> float:
