@@ -8,7 +8,11 @@ per-layer metric is a file of its own, found by the name that
 
 * ``benchmark/configs/<config>.json``: the configuration as it is run;
 * ``benchmark/traffic/<traffic>.json``: the parameters of a traffic mix;
-* ``benchmark/metrics/<metric>.py``: ``read(run)``, one per-layer metric.
+* ``benchmark/metrics/<metric>.py``: ``read(run)``, one per-layer metric;
+* ``benchmark/reference/arch/<architecture>.py``: the plain reference
+  networks of a configuration's ``"architecture"``
+  (``benchmark/reference/arch/__init__.py`` states what such a file
+  defines).
 """
 
 from __future__ import annotations

@@ -76,6 +76,7 @@ def macro_step(c: dict, st: State, real_u8: Tensor, dsteps: int, gsteps: int,
     """``dsteps`` critic updates, then ``gsteps`` generator updates with
     the EMA, over ``st.ranks`` blocks of the GLOBAL ``real_u8`` (per_step,
     B, H, W, C); returns the last updates' losses as 0-d tensors."""
+    gan.check_objective(c)
     n, alphas = st.ranks, c["rq_alphas"]
     real = (real_u8.to(st.device).float() - 127.5) / 127.5
     b = real.shape[1] // n

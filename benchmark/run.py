@@ -56,6 +56,13 @@ def drive(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda
     if not common.has_cell_module(t["kind"]):
         raise common.Refused(f"traffic {cell['traffic']!r} has an unknown kind {t['kind']!r}")
     driver = importlib.import_module(f"benchmark.{t['kind']}_cell")
+    # refuse before set-up what the reference that decides `correct` cannot follow
+    from benchmark.reference import gan
+    try:
+        gan.arch(c)
+        gan.check_objective(c)
+    except ValueError as e:
+        raise common.Refused(str(e)) from None
     peaks = None
     if device == "cuda":
         import torch

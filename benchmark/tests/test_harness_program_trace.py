@@ -120,6 +120,34 @@ def test_new_readers(monkeypatch, name, kind, window, want):
     assert common.read_metric(name, run) is None
 
 
+# what the one-card training readers need of a run, at made-up values
+TRAIN_RUN = {"trace": {"macro_steps": 8, "launches": 800, "busy_s": 1.0, "window_s": 4.0},
+             "rate": {"macro_steps": 8, "window_s": 2.0, "images": 384},
+             "spans": {"data.wait": [0.002, 0.004]}, "peaks": {"bf16": 1e15}, "chips": 4,
+             "config": {"flops_per_macro_step": 1e13, "steps_per_dispatch": 4}}
+TRAIN4_COPIES = sorted(m["name"] for m in common.benchmark_file()["per_layer"]
+                       if m["name"].endswith(".train4") and m["name"] != "train.images_per_s.train4")
+
+
+@pytest.mark.parametrize("name", TRAIN4_COPIES)
+def test_train4_readers_read_the_one_card_ones(monkeypatch, name):
+    """``<metric>.train4`` reads in the ``train4`` cell what ``<metric>``
+    reads there, and nothing in a one-card training cell."""
+    monkeypatch.setattr(program_trace, "windows", lambda r: dict(WINDOW, counters_b={}))
+    shared = name[:-len(".train4")]
+    run, one = dict(TRAIN_RUN, kind="train4"), dict(TRAIN_RUN, kind="train")
+    want = common.read_metric(shared, run)
+    assert want is not None and common.read_metric(name, run) == want
+    assert common.read_metric(shared, one) is not None and common.read_metric(name, one) is None
+
+
+def test_train4_rate_reader():
+    run = dict(TRAIN_RUN, kind="train4")
+    assert common.read_metric("train.images_per_s.train4", run) == pytest.approx(192.0)
+    assert common.read_metric("train.images_per_s.train4", dict(run, kind="train")) is None
+    assert common.read_metric("train.images_per_s.train4", dict(run, rate=None)) is None
+
+
 def test_windows_need_a_traced_run_on_a_card():
     assert program_trace.windows({}) is None
     assert program_trace.windows({"kind": "train"}) is None

@@ -24,8 +24,12 @@ def _port_state(c):
     return create_state(common.port_config(c, SEED), seed=SEED, device="cpu")
 
 
-def test_initial_weights_are_the_ports():
-    c = train_config()
+ARCHITECTURES = ["resnet", "dcgan"]
+
+
+@pytest.mark.parametrize("architecture", ARCHITECTURES)
+def test_initial_weights_are_the_ports(architecture):
+    c = train_config(architecture=architecture)
     st = _port_state(c)
     gp, dp = gan.init_weights(c, SEED)
     for module, ref in ((st.gen, gp), (st.disc, dp)):
@@ -35,14 +39,15 @@ def test_initial_weights_are_the_ports():
             assert torch.equal(port[k].detach(), ref[k]), k
 
 
+@pytest.mark.parametrize("architecture", ARCHITECTURES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_first_macro_step_follows_the_port(dtype):
+def test_first_macro_step_follows_the_port(dtype, architecture):
     """The port's first macro-step (a dispatch of one) against the
     reference: the losses and the Adam moments.  float32 to 1e-5 (float32
     summation order); bfloat16 to its rounding."""
     from smmdax_torch.data.pipeline import ArraySource, macro_batch_at
     from smmdax_torch.train import dispatch_train_step
-    c = train_config(compute_dtype=dtype)
+    c = train_config(compute_dtype=dtype, architecture=architecture)
     cfg = common.port_config(c, SEED)
     st = _port_state(c)
     data = images(SEED, c["dataset_images"], 32)

@@ -22,8 +22,16 @@ def _drive(cell, config):
     return run.drive(cell, SEED, 0.5, False, device="cpu", config=config)
 
 
-@pytest.mark.parametrize("cell,config", [(TRAIN_CELL, train_config), (SCORE_CELL, score_config)],
-                         ids=["train", "score"])
+def _dcgan_config():
+    """The train cell's configuration with the DCGAN pair: an
+    architecture that no cell runs, taken by its reference networks
+    (``benchmark/reference/arch/dcgan.py``) alone."""
+    return train_config(architecture="dcgan")
+
+
+@pytest.mark.parametrize("cell,config", [(TRAIN_CELL, train_config), (SCORE_CELL, score_config),
+                                         (TRAIN_CELL, _dcgan_config)],
+                         ids=["train", "score", "train_dcgan"])
 def test_rehearsal(cell, config):
     out = _drive(cell, config())
     r = out["result"]

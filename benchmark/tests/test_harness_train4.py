@@ -39,9 +39,12 @@ def test_rehearsal_is_correct(rehearsal):
     r = rehearsal["result"]
     assert set(r) == {"correct", "attempted", "failed", "metrics", "device"}
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] >= 2
-    assert set(r["metrics"]) == {"train_images_per_s", "setup_s"}
+    # the card's memory peak is the other end-to-end metric, and a CPU has none
+    assert {m["name"] for m in common.cell_metrics(common.benchmark_file(), TRAIN4_CELL, False)} \
+        == {"memory_peak_bytes", "setup_s"}
+    assert set(r["metrics"]) == {"setup_s"}
     assert r["device"]["platform"] == "cpu"
-    assert set(rehearsal["checks"]) == {"loss_gap", "grad_gap", "change_gap", "dispatch_gap",
+    assert set(rehearsal["checks"]) == {"first_loss_gap", "grad_gap", "change_gap", "dispatch_gap",
                                         "rank_gap", "block_gap"}
     assert rehearsal["checks"]["block_gap"]["value"] == 0
 
@@ -55,7 +58,7 @@ def test_reference_follows_the_ports_shard_map_step():
     ctx["traffic"] = dict(ctx["traffic"], check_steps=1)
     with threads():
         checks = {k: v["value"] for k, v in train4_cell.run(ctx)["checks"].items()}
-    assert checks["loss_gap"] <= 1e-5 and checks["grad_gap"] <= 1e-5
+    assert checks["first_loss_gap"] <= 1e-5 and checks["grad_gap"] <= 1e-5
     assert checks["dispatch_gap"] == 0 and checks["rank_gap"] == 0 and checks["block_gap"] == 0
 
 
@@ -142,7 +145,7 @@ def _control(c, seed, dev):
 
 
 def _fails(numbers, limits):
-    return any(numbers[k] > limits[k] for k in numbers)
+    return any(numbers[k] > limits[k] for k in limits if k in numbers)
 
 
 def test_control_fails_on_the_cpu():

@@ -12,11 +12,15 @@ readings for the comparison) and one dispatch of K.  The window opens
 after a barrier; rank 0's clock decides when it ends, and that decision
 is all-reduced at every dispatch boundary, as the trainer stops its ranks
 on a signal; it ends on a synchronize and a barrier.
-``train_images_per_s`` is every real image of the completed macro-steps,
-(dsteps + gsteps) x the global batch each, over rank 0's window;
-``setup_s`` runs from this command's start to the window's opening
-barrier (``time.perf_counter``, the host's monotonic clock, which every
-process shares).
+The window's rate is every real image of the completed macro-steps,
+(dsteps + gsteps) x the global batch each, over rank 0's window: on a
+host whose cores share their time with other machines it spreads too
+widely to bound, so the cell reports it per layer
+(``train.images_per_s.train4``).  Its end-to-end metrics are
+``setup_s``, from this command's start to the window's opening barrier
+(``time.perf_counter``, the host's monotonic clock, which every process
+shares), and ``memory_peak_bytes``, the allocator's peak on the fullest
+card over set-up and the window.
 
 With ``--trace 1`` every rank runs the traced dispatches and rank 0
 profiles them: ``trace_dispatches`` under CUDA activity and
@@ -134,9 +138,13 @@ def rank_main(axis, ctx: dict):
     axis.barrier()
     window_s = time.perf_counter() - t0
     mark("window")
-    # each rank's median wall and launching-thread CPU seconds a dispatch:
-    # whether a slow window is a slow host or a wait on the other ranks
-    look = axis.gather_objects((statistics.median(walls), statistics.median(cpus)))
+    # each rank's median wall and launching-thread CPU seconds a dispatch
+    # (whether a slow window is a slow host or a wait on the other ranks),
+    # its slowest dispatch and how many took over 1.25x the median wall (a
+    # stall, or a host that slowed within the window)
+    med = statistics.median(walls)
+    look = axis.gather_objects((med, statistics.median(cpus), max(walls),
+                                sum(w > 1.25 * med for w in walls), len(walls)))
     run_info = {"kind": "train4", "config": c, "traffic": t, "chips": ctx["chips"],
                 "rate": {"macro_steps": macro_steps, "window_s": window_s,
                          "images": macro_steps * (c["dsteps"] + c["gsteps"])
@@ -191,11 +199,12 @@ def run(ctx: dict) -> Dict:
     ref = tc.reference_readings(c, seed, data, t["check_steps"], dev, model=gan_dp)
     phases["reference"] = time.perf_counter() - ctx["t0"]
     print("train4 phases (s since start): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
-          + "; median dispatch s (wall, CPU) by rank: "
-          + ", ".join(f"({wall:.3f}, {cpu:.3f})" for wall, cpu in out["look"]), file=sys.stderr)
+          + "; dispatch s by rank (median wall, median CPU, slowest wall, over 1.25x of n): "
+          + ", ".join(f"({wall:.3f}, {cpu:.3f}, {top:.3f}, {slow} of {n})"
+                      for wall, cpu, top, slow, n in out["look"]), file=sys.stderr)
     numbers = {**tc.compare(out["prog"], ref), **out["gaps"]}
-    rate = run_info["rate"]
+    memory = device["memory_peak_bytes"] if device["platform"] == "gpu" else None
     return {"setup_s": out["setup_s"], "run": run_info, "device": device,
             "extra": out["extra"], "checks": common.judge(numbers, c["limits"]["train4"]),
             "attempted": out["attempted"], "failed": 0,
-            "e2e": {"train_images_per_s": rate["images"] / rate["window_s"]}}
+            "e2e": {"memory_peak_bytes": memory}}
